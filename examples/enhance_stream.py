@@ -5,7 +5,6 @@ config-5 pipeline (median → CLAHE → unsharp) with:
 
   * disk IO prefetch on native C++ worker threads (io.FrameLoader),
   * H2D-transfer/compute overlap (pipeline.stream_frames),
-  * in-program DMA double buffering (Pallas kernels on TPU),
   * encode + write-behind on native C++ worker threads (io.FrameWriter).
 
 Run: ``python examples/enhance_stream.py [--frames N] [--size HxW] [--outdir D]``
@@ -32,7 +31,7 @@ def main() -> int:
     ap.add_argument("--outdir", default=None, help="write enhanced frames here (PGM)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="run the pipeline sharded over an N-device mesh "
-                    "(batch DP or --shard spatial).  On a single-chip host, "
+                    "(batch DP or --shard spatial).  On a single-device host, "
                     "test with JAX_PLATFORMS=cpu XLA_FLAGS="
                     "--xla_force_host_platform_device_count=8")
     ap.add_argument("--shard", choices=("batch", "spatial"), default="batch")
@@ -42,6 +41,9 @@ def main() -> int:
     from imageenhancement_mp_tpu.io import FrameLoader, FrameWriter
     from imageenhancement_mp_tpu.models.presets import get_preset
     from imageenhancement_mp_tpu.pipeline import stream_frames
+    from imageenhancement_mp_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     # synthesize frames on disk
     tmp = Path(tempfile.mkdtemp(prefix="ie_demo_"))

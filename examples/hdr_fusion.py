@@ -1,4 +1,4 @@
-"""End-to-end HDR pipeline demo: align → merge → tonemap, all on TPU.
+"""End-to-end HDR pipeline demo: align → merge → tonemap, all on device.
 
 Synthesizes a bracketed exposure stack (or loads .npy frames you pass),
 aligns it with the bit-exact MTB aligner, fuses it two ways — Mertens
@@ -32,6 +32,9 @@ def synth_stack(h=480, w=640, seed=0):
 
 
 def main(argv=None):
+    from imageenhancement_mp_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     prefix = (argv or sys.argv[1:] or ["/tmp/hdr"])[0]
     frames, times = synth_stack()
 

@@ -4,7 +4,7 @@ Mirrors the reference's per-op signatures (BASELINE.json:5) over batched
 arrays: every function accepts ``[H,W]``, ``[H,W,C]``, ``[N,H,W]`` or
 ``[N,H,W,C]`` uint8 and applies the enhancement per plane (per image ×
 channel), exactly like per-image/per-channel OpenCV calls — but jit-compiled
-and vmap-batched on TPU.
+and vmap-batched on device.
 
 The whole wrapper body (shape canonicalization + op + restore) runs inside
 one jitted program per (op, static-params, input-shape), so the HWC↔planes
@@ -642,7 +642,7 @@ def resize(img, dsize, interpolation: str = "linear", channels_last: bool = True
     measure-zero boundary snaps — ref/ops.py ``resize``), ``"linear"``
     (u8 BIT-EXACT fixed-point; u16/i16 cv2-float-path ±1; f32 1-ulp),
     ``"area"`` (integer-factor exact incl. the 2x2 half-up fast path;
-    general downscale rides the MXU as two weight matmuls)."""
+    general downscale runs as two weight matmuls)."""
     _check_image_dtype(img, allow_i16=True)
     return _apply("resize", img, channels_last,
                   dsize=(int(dsize[0]), int(dsize[1])),
@@ -757,7 +757,7 @@ def remap(img, map_x, map_y, interpolation: str = "linear",
     ±1, NEAREST exact.  CUBIC (INTER_CUBIC, all dtypes): u8 exact
     (razor-tie ±1 class), u16/i16 ±1, f32 ~1 ulp vs cv2; on the CPU
     backend the device may differ from the oracle by ±1 LSB (XLA FMA
-    contraction — TPU is strict per-op f32).  LANCZOS4: cv2's
+    contraction).  LANCZOS4: cv2's
     quantized 1/32-cell tabs pinned bitwise — u8 through the 2^15 int
     tab (device == oracle bitwise), u8/u16/i16 ±1 vs cv2 on ≲0.3 % px
     (tab-correction ambiguity), f32 ~1 ulp.  The maps are shared
@@ -783,10 +783,9 @@ def warp_polar(img, dsize, center, max_radius: float, log: bool = False,
     semilog inverse's log32f is build-dependent inside cv2 itself —
     u8/u16 stay bit-exact, f32-linear within 6e-6 (ref docstring).
 
-    The geometry is static, so (round 4) the whole op — wrap pad, map
-    bake, gather — lives in one jitted planes fn and the u8
-    linear/nearest path rides the windowed Pallas gather
-    (ops/warp.py ``warp_polar_planes``)."""
+    The geometry is static, so the whole op — wrap pad, map bake,
+    gather — lives in one jitted planes fn (ops/warp.py
+    ``warp_polar_planes``)."""
     return _apply("warp_polar", img, channels_last,
                   dsize=(int(dsize[0]), int(dsize[1])),
                   center=(float(center[0]), float(center[1])),
@@ -1013,7 +1012,7 @@ def compare_hist(h1, h2, method: str = "correl"):
 def match_template(img, templ, method: str = "ccoeff_normed",
                    channels_last: bool = True):
     """``cv2.matchTemplate`` — f32 result ``(H-th+1, W-tw+1)`` per
-    plane; the template is static (baked as the MXU conv kernel).
+    plane; the template is static (baked as the conv kernel).
 
     Float-tolerance parity (worst 3e-6 relative vs cv2 incl. the
     SQDIFF_NORMED [0,1] clamp — docs/PARITY.md)."""
@@ -1072,9 +1071,9 @@ def get_rect_sub_pix(img, patch_size, centers, patch_type: str = None):
     single = c.ndim == 1
     if single:
         c = c[None]
-    if patch_type == "f32" and jax.default_backend() != "tpu":
-        # the CPU path routes products through f64 reduce_precision
-        # (ops/subpix.py _prod32) — needs x64 enabled during trace
+    if patch_type == "f32":
+        # products route through f64 reduce_precision (ops/subpix.py
+        # _prod32) — needs x64 enabled during trace
         with jax.enable_x64(True):
             out = _subpix_jit(w, h, True)(img, c)
     else:
@@ -1147,7 +1146,7 @@ def calc_optical_flow_pyr_lk(prev_img, next_img, prev_pts,
     bitwise always, 99.6 % of points (and their err) bitwise, the rest
     ≤ 1e-4 px (deep-iteration ulp ties — 200-config/3000-point sweep,
     docs/PARITY.md); device == oracle bitwise everywhere.
-    ``exact=False`` uses free-order reductions — the TPU-speed path,
+    ``exact=False`` uses free-order reductions — the fast path,
     same algorithm, sub-0.1 px agreement (ops/lk.py)."""
     _check_u8(prev_img)
     _check_u8(next_img)
@@ -1159,7 +1158,7 @@ def calc_optical_flow_pyr_lk(prev_img, next_img, prev_pts,
                  int(max_count), float(epsilon), float(min_eig_threshold),
                  bool(exact))
     # exact delta.ddot and 1/D are f64 laws (ops/lk.py); without x64
-    # they silently demote to f32 and flip rare ties — on TPU too
+    # they silently demote to f32 and flip rare ties
     # (the f64 scalars are per-point per-iteration only)
     with jax.enable_x64(True):
         return fn(jnp.asarray(prev_img), jnp.asarray(next_img), pts)
@@ -1270,7 +1269,7 @@ def fast_nl_means_denoising(img, h: float = 10.0, template_window: int = 7,
         raise ValueError(f"norm_type must be 'l1' or 'l2', got {norm_type!r}")
     if img.dtype == jnp.uint16:
         # cv2 supports 16U only with NORM_L1 (FPM = INT_MAX, 64-bit
-        # accumulators — docs/PARITY.md); s64 is TPU-lowerable
+        # accumulators — docs/PARITY.md)
         if norm_type != "l1":
             raise ValueError("uint16 fastNlMeansDenoising requires norm_type='l1'"
                              " (cv2's own constraint)")
@@ -1446,7 +1445,7 @@ def edge_preserving_filter(img, flags: str = "recursive",
     ``flags='recursive'`` (RECURS_FILTER) is BIT-EXACT vs cv2 (rare ±1
     powf-ulp px); ``'normconv'`` (NORMCONV_FILTER) is ±1 on ~3 % px
     (docs/PARITY.md).  On device the RF recursion runs as lax.scan
-    chains (strict per-op f32 on TPU == the oracle's sequence); the NC
+    chains (the oracle's f32 sequence); the NC
     variant is fully data-parallel (cumsum + searchsorted + SAT).
     uint8 ``[H,W,3]`` / ``[N,H,W,3]``."""
     _check_rgb_u8(img, "edgePreservingFilter")
@@ -1593,7 +1592,7 @@ def accumulate_weighted(src, acc, alpha: float, mask=None):
     path; cv2's default IPP dispatch deviates ~2e-3 from cv2's own
     native path — ref/ops.py accumulate_weighted).  On the CPU test
     backend XLA contracts the chain (±1 ulp, the docs/PARITY.md
-    backend nuance); XLA:TPU computes the strict per-op law."""
+    backend nuance)."""
     _check_acc(acc)
     fn = _accum_jit("w", float(alpha), mask is not None)
     return fn(src, acc) if mask is None else fn(src, acc, mask)
@@ -2178,30 +2177,28 @@ def _blend_linear_jit(u8: bool):
         den = w1 + w2 + jnp.float32(1e-5)
         if a.ndim == 3:
             w1, w2, den = w1[..., None], w2[..., None], den[..., None]
-        # cv2 rounds each product separately; XLA:CPU's fast-math
-        # contracts mul+add into fma regardless of barriers/bitcasts
-        # (probed), and it also elides plain f64→f32→f64 convert
-        # round-trips.  reduce_precision is the one rounding XLA must
-        # honor: the exact f64 product snapped to the f32 grid feeds an
-        # un-contractable add, making CPU bitwise too.  XLA:TPU never
-        # contracts f32 mul+add (selftest asserts the plain path is
-        # bitwise) and its X64-rewrite pass rejects f64
-        # reduce-precision, so the chip keeps the direct form.
-        if jax.default_backend() == "tpu":
-            num = a.astype(jnp.float32) * w1 + b.astype(jnp.float32) * w2
-        else:
-            p1 = jax.lax.reduce_precision(
-                a.astype(jnp.float64) * w1.astype(jnp.float64), 8, 23
-            ).astype(jnp.float32)
-            p2 = jax.lax.reduce_precision(
-                b.astype(jnp.float64) * w2.astype(jnp.float64), 8, 23
-            ).astype(jnp.float32)
-            num = p1 + p2
+        # cv2 rounds each product separately; XLA's CPU and GPU codegen
+        # contract mul+add into fma regardless of barriers/bitcasts
+        # (probed), and elide plain f64→f32→f64 convert round-trips.
+        # reduce_precision is the one rounding XLA must honor: the exact
+        # f64 product snapped to the f32 grid feeds an un-contractable
+        # add, making the result bitwise.
+        p1 = jax.lax.reduce_precision(
+            a.astype(jnp.float64) * w1.astype(jnp.float64), 8, 23
+        ).astype(jnp.float32)
+        p2 = jax.lax.reduce_precision(
+            b.astype(jnp.float64) * w2.astype(jnp.float64), 8, 23
+        ).astype(jnp.float32)
+        num = p1 + p2
         # XLA's f32 divide is reciprocal-based (≤2 ulp); divide in f64
         # instead — double rounding f64→f32 of a quotient of two f32s
-        # is provably exact (2p+2-bit innocuous-double-rounding bound)
-        out = (num.astype(jnp.float64) / den.astype(jnp.float64)
-               ).astype(jnp.float32)
+        # is provably exact (2p+2-bit innocuous-double-rounding bound).
+        # The quotient is snapped to the f32 grid by reduce_precision
+        # before the convert: XLA:GPU's f64→f32 convert of the quotient
+        # alone came out up to 2 ulp off (probed on an H100).
+        out = jax.lax.reduce_precision(
+            num.astype(jnp.float64) / den.astype(jnp.float64), 8, 23
+        ).astype(jnp.float32)
         if u8:
             return jnp.clip(jnp.round(out), 0, 255).astype(jnp.uint8)
         return out
@@ -2218,8 +2215,7 @@ def blend_linear(src1, src2, weights1, weights2):
     ``(src1·w1 + src2·w2)/(w1 + w2 + 1e-5)``; u8 rounds half-even and
     saturates, f32 returns the raw quotient.  ``weights*`` are [H,W]
     f32 shared across channels (ref/ops.py blend_linear).  Device:
-    bitwise on TPU (u8 and f32); the hermetic CPU backend's fast-math
-    fma contraction leaves ±1 ulp on the f32 tier (docs/PARITY.md)."""
+    bitwise on the CPU and GPU backends, u8 and f32 (docs/PARITY.md)."""
     if src1.shape != src2.shape:
         raise ValueError("sources must share shape")
     if src1.dtype not in (jnp.uint8, jnp.float32):

@@ -5,7 +5,7 @@
 // (SURVEY.md §3.5) — its decode work happens in OpenCV's C++.  This is the
 // rebuild's native equivalent for the streaming runtime (config 5): worker
 // threads read + decode frames ahead of the consumer so host IO overlaps
-// the TPU compute that pipeline.stream_frames keeps in flight.
+// the device compute that pipeline.stream_frames keeps in flight.
 //
 // Formats: PGM (P5), PPM (P6) with maxval up to 65535 (2-byte big-endian
 // samples above 255, per the PNM spec), 8- or 16-bit non-interlaced

@@ -1,8 +1,8 @@
-"""Branch-free selection networks shared by the XLA ops and Pallas kernels.
+"""Branch-free selection networks behind the median ops (ops/median.py).
 
 All functions take a list of equal-shaped arrays (the k² window taps) and
 return the elementwise median using only jnp.minimum/maximum — fully
-vectorized on the VPU, no data-dependent control flow (SURVEY.md §2 #9).
+vectorized, no data-dependent control flow (SURVEY.md §2 #9).
 
 * median of 9 — Paeth's optimal 19-comparator network (Graphics Gems).
 * median of 25 — forgetful selection (the GPU-median-filter construction):
@@ -12,8 +12,8 @@ vectorized on the VPU, no data-dependent control flow (SURVEY.md §2 #9).
   subset), so it can never be the 13th-smallest; inductively the true
   median always survives, and after 11 rounds it is the middle of the
   final 3.  ~165 compare-exchanges with ≤14 live arrays, vs ~300 CEs and
-  25 live arrays for odd-even transposition — the live-set reduction is
-  what matters for Pallas VMEM budgets.
+  25 live arrays for odd-even transposition — the live-set reduction
+  keeps the fused program's register/cache footprint small.
 """
 
 from __future__ import annotations

@@ -24,8 +24,7 @@ PRESETS: dict[str, list] = {
         ("clahe", {"clip_limit": 2.0, "tile_grid": (8, 8)}),
         ("unsharp_mask", {"amount": 1.0, "ksize": 5}),
     ],
-    # two-stage denoise+sharpen (stateless chain; also available as the
-    # fused Pallas kernel kernels.fused.median_unsharp_pallas)
+    # two-stage denoise+sharpen (stateless chain)
     "denoise_sharpen": [
         ("median_blur", {"ksize": 5}),
         ("unsharp_mask", {"amount": 1.0, "ksize": 5}),

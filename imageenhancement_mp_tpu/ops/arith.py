@@ -1,7 +1,7 @@
 """Core per-element arithmetic: cv2.add/subtract/multiply/divide/
 absdiff/bitwise/min/max/compare on device (contracts in ref/ops.py).
 
-TPU mapping: pure VPU elementwise programs on RAW arrays (no plane
+Device mapping: pure elementwise programs on RAW arrays (no plane
 canonicalization needed — elementwise ops are shape-agnostic), fused by
 XLA into single passes.  The only care is cv2's saturate_cast quirk:
 cvRound of an out-of-int32 value yields INT_MIN, so huge positive

@@ -20,9 +20,9 @@ output differs from cv2's reference path by ±1 on ~20 % of pixels — so
 (probed: the effective color weight varies with image content) and so
 cannot be pinned.
 
-TPU mapping: one pass per disc offset — shifted slice, |diff|, 256-entry
-LUT gather (the fast XLA gather path, docs/DESIGN.md §2), two FMAs — all
-fused by XLA into a VMEM-resident loop over the padded block.  Compute-
+Device mapping: one pass per disc offset — shifted slice, |diff|, 256-entry
+LUT gather, two FMAs — all fused by XLA into one loop over the padded
+block.  Compute-
 bound in the gather at ~(disc size) passes; still 100×+ the single-thread
 CPU reference (bench row).
 """
@@ -70,14 +70,11 @@ def _accumulate(p, c, offs, cw, r, H, W, joint: bool):
         v = p[..., r + i : r + i + H, r + j : r + j + W, :] if joint else (
             p[..., r + i : r + i + H, r + j : r + j + W])
         if joint:
-            # joint diff spans 0..255·3: stays on the XLA gather (the
-            # Pallas LUT kernel is 256-entry); color bilateral keeps the
-            # docs/DESIGN.md §2 slow-gather caveat for now
+            # joint diff spans 0..255·3: a 766-entry table gather
             diff = jnp.abs(v - c).sum(axis=-1).astype(jnp.int32)
             w = jnp.float32(w0) * cw[diff]
         else:
-            # gray diff is u8 → the Pallas bilinear-form LUT kernel on
-            # TPU (XLA's per-pixel gather is a scalar loop there — §9c)
+            # gray diff is u8: a 256-entry table gather
             diff = jnp.abs(v - c).astype(jnp.uint8)
             w = jnp.float32(w0) * apply_lut_planes(diff, cw)
         num = num + v * (w[..., None] if joint else w)
@@ -92,17 +89,6 @@ def bilateral_planes(
     if planes.dtype != jnp.uint8:
         raise TypeError(f"bilateral_filter takes uint8 (like cv2's 8u path), got {planes.dtype}")
     offs, color_w, r = bilateral_offsets(d, sigma_color, sigma_space, cn=1)
-    from imageenhancement_mp_tpu.config import pallas_enabled
-    from imageenhancement_mp_tpu.kernels.bilateral import (
-        bilateral_gray_pallas,
-        supports_bilateral_wide,
-    )
-
-    if pallas_enabled() and supports_bilateral_wide(planes.shape, planes.dtype, r):
-        # fused disc walk in one VMEM residency (the per-offset XLA loop
-        # below pays ~49 kernel launches + HBM round-trips on 4K —
-        # kernels/bilateral.py)
-        return bilateral_gray_pallas(planes, offs, color_w)
     H, W = planes.shape[-2], planes.shape[-1]
     cw = jnp.asarray(color_w)
     p = jnp.pad(planes, ((0, 0), (r, r), (r, r)), mode="reflect").astype(jnp.float32)

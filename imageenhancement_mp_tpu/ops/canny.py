@@ -1,8 +1,8 @@
 """Canny edge detection: ``cv2.Canny`` parity on device (contract
 pinned in ref/ops.py ``canny`` — bit-exact 0/180 fuzz).
 
-TPU mapping: the Sobel pair, magnitude, and NMS are one fused
-elementwise/stencil program (integer VPU math — the fixed-point NMS
+Device mapping: the Sobel pair, magnitude, and NMS are one fused
+elementwise/stencil program (integer math — the fixed-point NMS
 needs no transcendentals: cv2's TG22 = 13573/2^15 trick classifies the
 gradient direction with two integer products).  Hysteresis is the only
 data-dependent stage: a ``lax.while_loop`` fixpoint that grows the
@@ -113,7 +113,7 @@ def connected_components_planes(planes: jnp.ndarray, connectivity: int = 8) -> j
     """``cv2.connectedComponents`` per plane on ``(N, H, W)`` masks —
     int32 labels, 0 = background (contract in ref/ops.py).
 
-    TPU mapping: min-label propagation with POINTER JUMPING — each
+    Device mapping: min-label propagation with POINTER JUMPING — each
     ``lax.while_loop`` step takes the 4/8-neighbor minimum and then
     compresses paths by gathering each pixel's label's label, so
     convergence is logarithmic in the component diameter instead of

@@ -3,8 +3,8 @@
 Reference equivalent: ``cv2.createCLAHE(clip, grid).apply`` (SURVEY.md §2 #5,
 §3.2, §8.3).  Three stages, mirroring the rebuild design:
 
-  A. per-tile 256-bin histograms — tiles reshaped to ``[gh·gw, th·tw]`` and
-     histogrammed with the nibble-split one-hot matmul (MXU path, exact);
+  A. per-tile 256-bin histograms — tiles reshaped to ``[B·gh·gw, th·tw]``
+     and histogrammed in one batched ``histogram_256`` call (exact);
   B. clip + redistribute + CDF + LUT — a tiny ``[T, 256]`` vectorized stage
      (int32 clip/redistribute; the LUT scale is f32, mirroring cv2);
   C. per-pixel bilinear blend of the 4 neighboring tile LUTs — one gather
@@ -33,42 +33,27 @@ __all__ = ["clahe_planes", "clahe_tile_luts", "blend_tile_luts"]
 def _tile_hists(
     padded: jnp.ndarray, gh: int, gw: int, th: int, tw: int, hist_size: int = 256
 ) -> jnp.ndarray:
-    """[H,W] -> [gh*gw, hist_size] i32 per-tile histograms (split matmul).
+    """``[B, H, W]`` -> ``[B, gh·gw, hist_size]`` i32 per-tile histograms.
 
-    uint8: 4/4-bit nibble split (16×16 outer product).
-    uint16: 8/8-bit byte split (256×256 outer product) — same MXU trick.
+    uint8: every tile of every plane goes through ``histogram_256`` in one
+    batched call.  uint16: a scatter-add per tile (the byte-split one-hots
+    would be ~512 B/px).
     """
-    half = 16 if hist_size == 256 else 256
-    shift = 4 if hist_size == 256 else 8
-    tiles = padded.reshape(gh, th, gw, tw).transpose(0, 2, 1, 3).reshape(gh * gw, th * tw)
+    B = padded.shape[0]
+    tiles = (
+        padded.reshape(B, gh, th, gw, tw)
+        .transpose(0, 1, 3, 2, 4)
+        .reshape(B * gh * gw, th * tw)
+    )
     if hist_size == 256:
-        from imageenhancement_mp_tpu.config import pallas_enabled
+        from imageenhancement_mp_tpu.ops.histogram import histogram_256
 
-        if pallas_enabled():
-            # Pallas stripe kernel, tiles as the batch dim: one-hots stay
-            # in VMEM (the XLA path below materializes them in HBM —
-            # ~370× slower on chip, docs/DESIGN.md §9c)
-            from imageenhancement_mp_tpu.kernels.hist import hist256_pallas
-
-            return hist256_pallas(tiles)
-    v = tiles.astype(jnp.int32)
-    if hist_size == 65536 and jax.default_backend() != "tpu":
-        # the byte-split one-hots are [T, P, 256] ×2 — on TPU XLA streams
-        # them into the int8 matmul, but other backends materialize them
-        # (~512 B/px) and OOM; scatter instead
-        return jax.vmap(
-            lambda t: jnp.zeros((hist_size,), jnp.int32).at[t].add(1)
-        )(v)
-    bins = jnp.arange(half, dtype=jnp.int32)
-    a = ((v >> shift)[..., None] == bins).astype(jnp.int8)  # [T, P, half]
-    b = ((v & (half - 1))[..., None] == bins).astype(jnp.int8)
-    h = jax.lax.dot_general(
-        a,
-        b,
-        dimension_numbers=(((1,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.int32,
-    )  # [T, half, half]
-    return h.reshape(gh * gw, hist_size)
+        h = histogram_256(tiles)
+    else:
+        h = jax.vmap(
+            lambda t: jnp.zeros((hist_size,), jnp.int32).at[t.astype(jnp.int32)].add(1)
+        )(tiles)
+    return h.reshape(B, gh * gw, hist_size)
 
 
 def clahe_tile_luts(
@@ -136,12 +121,10 @@ def blend_tile_luts(
     l01 = flat_luts[base01 + v].astype(jnp.float32)
     l10 = flat_luts[base10 + v].astype(jnp.float32)
     l11 = flat_luts[base11 + v].astype(jnp.float32)
-    # same association as the oracle/cv2 float path — bit-exact on the
-    # TPU backend (strict per-op f32).  XLA:CPU codegen keeps excess
-    # precision / contracts FMAs through f32 chains (pinned by probe;
-    # optimization_barrier and --xla_allow_excess_precision=false do
-    # NOT disable it), so the hermetic CPU tier carries a ±1 budget —
-    # a property of the test backend, not of the op (docs/PARITY.md).
+    # same association as the oracle/cv2 float path.  XLA's CPU and GPU
+    # codegen contract mul+add into FMA through these f32 chains
+    # (optimization_barrier and --xla_allow_excess_precision=false do NOT
+    # disable it), so the blend carries a ±1 budget (docs/PARITY.md).
     top = (1.0 - fx_row) * l00 + fx_row * l01
     bot = (1.0 - fx_row) * l10 + fx_row * l11
     out = (1.0 - fy_col) * top + fy_col * bot
@@ -153,11 +136,9 @@ def clahe_planes(
 ) -> jnp.ndarray:
     """``cv2.createCLAHE`` on uint8/uint16 planes ``[B, H, W]``.
 
-    Bit-exact vs cv2 on TPU (round-2 on-chip fuzz: 0/40 random configs);
-    on the CPU test backend the blend can flip ±1 LSB because XLA:CPU
-    contracts ``mul+add`` into FMA, changing the f32 rounding sequence —
-    the TPU backend does not contract (verified probe, docs/PARITY.md).
-    uint16 uses cv2's 65536-bin histogram."""
+    Within ±1 LSB of cv2: the stage-C blend can flip one LSB where XLA
+    contracts ``mul+add`` into FMA, changing the f32 rounding sequence
+    (docs/PARITY.md).  uint16 uses cv2's 65536-bin histogram."""
     if planes.dtype not in (jnp.uint8, jnp.uint16):
         raise TypeError(f"CLAHE supports uint8/uint16 (cv2 parity), got {planes.dtype}")
     hist_size = 65536 if planes.dtype == jnp.uint16 else 256
@@ -175,62 +156,6 @@ def clahe_planes(
     y0, y1, fy = _interp_coords(H, th, gh)
     x0, x1, fx = _interp_coords(W, tw, gw)
 
-    if pad_h == 0 and pad_w == 0:
-        from imageenhancement_mp_tpu.config import pallas_enabled
-
-        def _dg_ok():
-            from imageenhancement_mp_tpu.kernels.hist import _dg_supported
-
-            return _dg_supported()
-
-        from imageenhancement_mp_tpu.kernels.clahe_u16 import (
-            clahe_blend_quad_pallas,
-            uniform_quadrant_split,
-        )
-
-        if (
-            pallas_enabled()
-            and _dg_ok()
-            and uniform_quadrant_split(y0, gh, th)
-            and uniform_quadrant_split(x0, gw, tw)
-        ):
-            # quadrant stage C: within one quadrant of a tile all pixels
-            # blend the SAME four neighbor LUTs, so the tables arrive as
-            # whole BlockSpec operands and the per-pixel work is one
-            # packed gather chain per field — 1 step for u8, 256 for u16
-            # (the XLA per-pixel gather into [T·S] is a scalar loop on
-            # TPU; the 9-LUT stacked kernel pays an 18-step chain per
-            # field; kernels/clahe_u16.py)
-            if hist_size == 256:
-                from imageenhancement_mp_tpu.kernels.hist import hist256_pallas
-
-                tiles = (
-                    planes.reshape(B, gh, th, gw, tw)
-                    .transpose(0, 1, 3, 2, 4)
-                    .reshape(B * gh * gw, th * tw)
-                )
-                hists = hist256_pallas(tiles)
-            else:
-                hists = jax.vmap(
-                    lambda p: _tile_hists(p, gh, gw, th, tw, hist_size)
-                )(planes).reshape(B * gh * gw, hist_size)
-            luts = clahe_tile_luts(hists, area, clip_limit, hist_size)
-            return clahe_blend_quad_pallas(planes, luts, gh, gw, fy, fx)
-
-    if hist_size == 256 and pad_h == 0 and pad_w == 0:
-        from imageenhancement_mp_tpu.config import pallas_enabled
-
-        def _dg_ok():
-            from imageenhancement_mp_tpu.kernels.hist import _dg_supported
-
-            return _dg_supported()
-
-        if pallas_enabled() and _dg_ok():
-            # non-uniform tile-center split: the 9-LUT stacked kernel
-            return _clahe_pallas(
-                planes, clip_limit, gh, gw, th, tw, y0, y1, fy, x0, x1, fx
-            )
-
     y0 = jnp.asarray(y0)
     y1 = jnp.asarray(y1)
     x0 = jnp.asarray(x0)
@@ -238,63 +163,17 @@ def clahe_planes(
     fy = jnp.asarray(fy)[:, None]
     fx = jnp.asarray(fx)[None, :]
 
-    def one(img: jnp.ndarray) -> jnp.ndarray:
-        padded = (
-            img
-            if pad_h == 0 and pad_w == 0
-            else jnp.pad(img, ((0, pad_h), (0, pad_w)), mode="reflect")
+    padded = (
+        planes
+        if pad_h == 0 and pad_w == 0
+        else jnp.pad(planes, ((0, 0), (0, pad_h), (0, pad_w)), mode="reflect")
+    )
+    hists = _tile_hists(padded, gh, gw, th, tw, hist_size)
+    luts = clahe_tile_luts(
+        hists.reshape(B * gh * gw, hist_size), area, clip_limit, hist_size
+    ).reshape(B, gh * gw * hist_size)
+    return jax.vmap(
+        lambda img, flat: blend_tile_luts(
+            img, flat, y0, y1, fy, x0, x1, fx, gw, hist_size
         )
-        hists = _tile_hists(padded, gh, gw, th, tw, hist_size)
-        luts = clahe_tile_luts(hists, area, clip_limit, hist_size)
-        flat = luts.reshape(-1)  # [gh*gw*hist_size]
-        return blend_tile_luts(img, flat, y0, y1, fy, x0, x1, fx, gw, hist_size)
-
-    return jax.vmap(one)(planes)
-
-
-def _clahe_pallas(planes, clip_limit, gh, gw, th, tw,
-                  y0g, y1g, fyg, x0g, x1g, fxg):
-    """u8 CLAHE, divisible geometry, Pallas kernels end to end.
-
-    Stage A+B run batched over ALL B·gh·gw tiles (one hist kernel call,
-    no vmap); stage C replaces the four per-pixel XLA gathers — a scalar
-    loop on TPU, docs/DESIGN.md §9c — with ONE multi-LUT kernel pass
-    applying each tile's 9 neighbor LUTs (kernels/hist.py), then selects
-    l00..l11 with STATIC half-masks and reuses blend_tile_luts' exact f32
-    association.  Bit-identical to the gather path (same values, same
-    arithmetic order).
-    """
-    from imageenhancement_mp_tpu.kernels.hist import hist256_pallas
-
-    B, H, W = planes.shape
-    T = gh * gw
-    # [B, H, W] → [B·T, th, tw] tile planes
-    tiles = (
-        planes.reshape(B, gh, th, gw, tw)
-        .transpose(0, 1, 3, 2, 4)
-        .reshape(B * T, th, tw)
-    )
-    hists = hist256_pallas(tiles)  # [B·T, 256]
-    luts = clahe_tile_luts(hists, th * tw, clip_limit, 256)  # [B·T, 256] u8
-
-    # static 3×3 neighbor shuffle (indices clipped like cv2's blend)
-    rr, cc = np.mgrid[0:gh, 0:gw]
-    idx9 = np.stack(
-        [
-            (np.clip(rr + dq, 0, gh - 1) * gw + np.clip(cc + dc, 0, gw - 1)).ravel()
-            for dq in (-1, 0, 1)
-            for dc in (-1, 0, 1)
-        ],
-        axis=1,
-    )  # [T, 9]
-    luts9 = luts.reshape(B, T, 256)[:, jnp.asarray(idx9), :].reshape(B * T, 9, 256)
-    from imageenhancement_mp_tpu.kernels.clahe_blend import clahe_blend_pallas
-
-    blended = clahe_blend_pallas(
-        tiles, luts9, gh, gw, th, tw, y0g, y1g, fyg, x0g, x1g, fxg
-    )  # [B·T, th, tw] u8: LUT-apply + exact bilinear blend, one kernel
-    return (
-        blended.reshape(B, gh, gw, th, tw)
-        .transpose(0, 1, 3, 2, 4)
-        .reshape(B, planes.shape[1], planes.shape[2])
-    )
+    )(planes, luts)

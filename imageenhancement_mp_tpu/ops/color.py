@@ -10,7 +10,7 @@ Pinned arithmetic (probes vs OpenCV 5.0.0 — see ref/ops.py:cvt_gray):
 * u8/u16: 15-bit fixed point with a sum-preserving blue coefficient
   (cR,cG,cB = 9798, 19235, 2^15−9798−19235), ``(acc + 2^14) >> 15``.
   Exhaustively exact for u8 (all 16.7M triples); the shift-15 accumulator
-  keeps u16 inside int32 (65535·2^15 + 2^14 < 2^31) — MXU/VPU-friendly.
+  keeps u16 inside int32 (65535·2^15 + 2^14 < 2^31).
 * f32: a chain of two single-rounded f32 FMAs over the channels in
   MEMORY order (x0,x1,x2 with weights w0,w1,w2):
   ``fma(x2, w2, fma(x0, w0, x1·w1))`` — reproduced exactly with the
@@ -30,24 +30,9 @@ from imageenhancement_mp_tpu.utils.fma import fma32
 
 
 def _take1(tab: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Per-pixel 1-D table gather: hardware dynamic-gather kernel on TPU
-    (XLA's take is a per-element scalar loop there — docs/DESIGN.md §9c).
-    ``idx`` must already be in-range int; table padded to a lane multiple."""
-    from imageenhancement_mp_tpu.config import pallas_enabled
-
-    if pallas_enabled() and idx.ndim >= 1:
-        from imageenhancement_mp_tpu.kernels.hist import (
-            gather_width_supported,
-            take_table_pallas,
-        )
-
-        L = tab.shape[0]
-        Lp = (L + 127) // 128 * 128
-        if gather_width_supported(Lp):
-            t = jnp.pad(tab, (0, Lp - L)) if Lp != L else tab
-            flat = idx.astype(jnp.int32).reshape(1, -1)
-            return take_table_pallas(flat, t).reshape(idx.shape)
+    """Per-pixel 1-D table gather; ``idx`` must already be in-range int."""
     return jnp.take(tab, idx)
+
 
 __all__ = ["cvt_gray_nhwc", "rgb_to_ycrcb_nhwc", "ycrcb_to_rgb_nhwc",
            "rgb_to_hsv_nhwc", "hsv_to_rgb_nhwc",
@@ -262,7 +247,7 @@ def rgb_to_hls_nhwc(img: jnp.ndarray, order: str = "rgb") -> jnp.ndarray:
     FMA-contract go through ``two_prod``.  This removes the per-pixel
     wide-table gathers (a 512-vreg chain / XLA scalar loop — the slow
     class in docs/DESIGN.md §11) from the path entirely: the op is now
-    pure VPU arithmetic."""
+    pure elementwise arithmetic."""
     from imageenhancement_mp_tpu.utils.fma import df_div, two_prod
 
     if img.dtype != jnp.uint8:
@@ -548,7 +533,7 @@ def rgb_to_luv_nhwc(img: jnp.ndarray, order: str = "rgb") -> jnp.ndarray:
     """``cv2.cvtColor(RGB2Luv)`` on ``(N, H, W, 3)`` uint8 — the packed
     trilinear path (ref/ops.py ``_luv_u8_tabs``; structure pinned,
     budget ±1 LSB on ≲3.5 %/1.1 %/1.5 % px per channel).  Pure integer
-    VPU math around three LUT gathers; device == oracle bitwise."""
+    math around three LUT gathers; device == oracle bitwise."""
     if order == "bgr":
         img = img[..., ::-1]
     if img.dtype == jnp.float32:

@@ -2,7 +2,7 @@
 
 The reference algorithm is a two-pass sequential raster DP (forward +
 backward), which looks hostile to a SIMD machine: every pixel depends on
-its already-updated left/up neighbors.  The TPU-native formulation used
+its already-updated left/up neighbors.  The vectorized formulation used
 here exploits two facts:
 
 * Rounding to f32 is monotone, and ``min`` commutes with monotone maps,
@@ -13,7 +13,7 @@ here exploits two facts:
 
 So each pass becomes one ``lax.scan`` over the sheared columns carrying
 a ``depth``-column window; each step is a handful of vectorized f32
-adds + mins over an H-vector (VPU lanes), giving O(shear·H + W)
+adds + mins over an H-vector, giving O(shear·H + W)
 sequential steps instead of O(H·W).  The backward pass is the same scan
 on the 180°-rotated field.
 

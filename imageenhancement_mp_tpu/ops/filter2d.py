@@ -1,9 +1,9 @@
 """Custom-kernel correlation: ``cv2.filter2D`` parity.
 
 The generic hook behind bespoke sharpening/embossing masks (the pinned
-contract lives in ref/ops.py ``filter2d``).  TPU mapping: the kernel is
+contract lives in ref/ops.py ``filter2d``).  Device mapping: the kernel is
 STATIC, so the correlation unrolls into kh·kw shifted adds that XLA
-fuses into one VMEM-resident pass:
+fuses into one pass:
 
 * integer-valued kernels on integer images → exact int32 accumulation
   (guarded against overflow);

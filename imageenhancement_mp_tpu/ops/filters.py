@@ -1,18 +1,17 @@
 """Spatial filters: Gaussian blur, Laplacian sharpen, unsharp mask.
 
 Reference equivalents: ``cv2.GaussianBlur``, ``cv2.Laplacian(ksize=1)``,
-``cv2.addWeighted`` (SURVEY.md §2 #6-8).  TPU-first design: separable
+``cv2.addWeighted`` (SURVEY.md §2 #6-8).  Design: separable
 convolutions expressed as shifted adds in f32 — all intermediate values are
-integers < 2^24, so f32 VPU arithmetic is *bit-exact* (SURVEY.md §8.2):
+integers < 2^24, so f32 arithmetic is *bit-exact* (SURVEY.md §8.2):
 
 * auto-σ taps are cv2's hardcoded binomials ·256 (integers);
 * the separable accumulation stays integral (max 255·65536 + 2^15 < 2^24);
 * the uint8 output is ``(acc + 2^15) >> 16`` = ``floor((acc + 2^15)/2^16)``,
   exact in f32 since the scale is a power of two.
 
-Shifted adds (jnp.pad + slicing) fuse into a handful of VPU ops under XLA and
-avoid the conv→im2col path entirely; the Pallas tile kernel (kernels/) uses
-the same math for the fused pipeline.
+Shifted adds (jnp.pad + slicing) fuse into a handful of elementwise ops under
+XLA and avoid the conv→im2col path entirely.
 """
 
 from __future__ import annotations
@@ -55,7 +54,6 @@ def gaussian_blur_planes(
     ksize=5,
     sigma: float = 0.0,
     sigma_y: float = 0.0,
-    backend: str | None = None,
 ) -> jnp.ndarray:
     """``cv2.GaussianBlur`` on uint8/uint16/float32 planes.
 
@@ -69,13 +67,7 @@ def gaussian_blur_planes(
     conv below is within ±1 LSB of cv2 (ref/ops.py ``gaussian_blur``
     docstring; docs/PARITY.md).
     float32: f32 separable conv (cv2's float path; no rounding).
-    ``backend``: "pallas" | "xla" | None (auto: Pallas on TPU).  Standalone
-    calls favor the Pallas kernel; fused pipelines default to "xla" so the
-    whole chain stays in one compiler view (clean A/B shows the two chain
-    backends perform equally — docs/DESIGN.md §4).
     """
-    from imageenhancement_mp_tpu import config
-
     kh, kw, sy, sx = gaussian_axes(sigma=sigma, sigma_y=sigma_y, ksize=ksize,
                                    depth_u8=planes.dtype == jnp.uint8)
     if kh == 1 and kw == 1:
@@ -96,10 +88,6 @@ def gaussian_blur_planes(
             # dyadic /256 taps: the cheaper Q8 split-accumulation suffices
             return _gauss_u16_fixed(planes, kh, kw)
         return _gauss_u16_q16(planes, kh, kw, sy, sx)
-    if backend == "pallas" or (backend is None and config.pallas_enabled()):
-        from imageenhancement_mp_tpu.kernels.conv import gaussian_blur_pallas
-
-        return gaussian_blur_pallas(planes, (kh, kw), sx, sy)
     tv = tuple(int(t) for t in gaussian_kernel_fixed(kh, sy))
     th = tuple(int(t) for t in gaussian_kernel_fixed(kw, sx))
     acc = _sep_conv_f32(planes, tv, th)
@@ -248,8 +236,8 @@ def box_blur_planes(planes: jnp.ndarray, ksize=3) -> jnp.ndarray:
     docs/PARITY.md).  float32: f32 separable sums vs the oracle's f64
     (ULP-level tolerance, like the float conv paths).
 
-    TPU mapping: kh+kw shifted adds over one VMEM-resident stripe — pure
-    VPU integer adds at the 2-passes/HBM roofline; XLA fuses the
+    Device mapping: kh+kw shifted integer adds in one fused pass (read +
+    write of the plane); XLA fuses the
     normalize multiply into the final add.
     """
     if isinstance(ksize, (tuple, list)):
@@ -310,17 +298,12 @@ def unsharp_mask_planes(
     amount: float = 1.0,
     ksize: int = 5,
     sigma: float = 0.0,
-    backend: str | None = None,
 ) -> jnp.ndarray:
     """``cv2.addWeighted(src, 1+a, blur, −a, 0)`` — exact for u8/u16 and
     any ``amount``: integral amounts stay in exact int32; fractional
     amounts reproduce cv2's two single-rounded f32 FMAs
     (``round(f32(src·f32(1+a) + f32(blur·f32(−a))))`` — ref/ops.py probe).
-    On TPU dispatches to the fused double-buffered Pallas kernel
-    (``backend`` as in gaussian_blur_planes).
     """
-    from imageenhancement_mp_tpu import config
-
     if planes.dtype == jnp.float32:
         # cv2's f32 addWeighted is the same two-FMA chain as the integer
         # path, just without the round/saturate (ref/ops.py:add_weighted
@@ -341,11 +324,7 @@ def unsharp_mask_planes(
                 src.astype(jnp.float32), blur.astype(jnp.float32), amount
             )
         return jnp.clip(out, minv, maxv).astype(planes.dtype)
-    if backend == "pallas" or (backend is None and config.pallas_enabled()):
-        from imageenhancement_mp_tpu.kernels.conv import unsharp_mask_pallas
-
-        return unsharp_mask_pallas(planes, amount, ksize, sigma)
-    blur = gaussian_blur_planes(planes, ksize, sigma, backend="xla")
+    blur = gaussian_blur_planes(planes, ksize, sigma)
     src = planes.astype(jnp.float32)
     if amount == int(amount):
         out = src + int(amount) * (src - blur.astype(jnp.float32))

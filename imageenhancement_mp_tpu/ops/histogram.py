@@ -1,18 +1,18 @@
-"""256-bin histograms and histogram equalization, TPU-first.
+"""256-bin histograms and histogram equalization.
 
 The reference's hist-eq is ``cv2.equalizeHist`` (C++ scalar loops over one
-image; SURVEY.md §3.1).  On TPU a scatter-add over 256 bins serializes on
-duplicate indices, so the production path reformulates the histogram as a
-*nibble-split one-hot matmul* that runs on the MXU (SURVEY.md §7 "hard
-parts"):
+image; SURVEY.md §3.1).  A scatter-add over 256 bins serializes on
+duplicate indices, so the histogram is reformulated as a *nibble-split
+one-hot matmul* (SURVEY.md §7 "hard parts"):
 
     v = hi·16 + lo  (4-bit split)
     onehot16(hi) : [P, 16]   onehot16(lo) : [P, 16]
     H[hi, lo] = Σ_p onehot16(hi)ᵀ · onehot16(lo)     (a [16,P]@[P,16] matmul)
     hist = H.reshape(256)                            (row-major: v = hi*16+lo)
 
-32 VPU compares per pixel instead of 256, and the contraction over pixels
-rides the MXU with int32 accumulation — exact for any plane < 2^31 pixels.
+32 compares per pixel instead of 256, and the contraction over pixels
+is a matrix product with int32 accumulation — exact for any plane < 2^31
+pixels.
 
 The LUT build (SURVEY.md §8.1) is 256 elements.  cv2's equalizeHist
 multiplies the int cdf by a FLOAT lutScale = 255/(N − hist[i0]); mirroring
@@ -38,7 +38,7 @@ def _hist_nibble_matmul(plane: jnp.ndarray) -> jnp.ndarray:
     hi = v >> shift
     lo = v & (half - 1)
     bins = jnp.arange(half, dtype=jnp.int32)
-    # int8 one-hots: MXU int8 path (394 TOPs on v5e) with int32 accumulation.
+    # int8 one-hots with int32 accumulation
     a = (hi[:, None] == bins[None, :]).astype(jnp.int8)
     b = (lo[:, None] == bins[None, :]).astype(jnp.int8)
     h = jax.lax.dot_general(
@@ -56,35 +56,26 @@ def _hist_scatter(plane: jnp.ndarray) -> jnp.ndarray:
     return jnp.zeros((nbins,), jnp.int32).at[v].add(1)
 
 
-def _hist_pallas(plane: jnp.ndarray) -> jnp.ndarray:
-    # vmap-compatible shim: the kernel itself is already batched
-    from imageenhancement_mp_tpu.kernels.hist import hist256_pallas
-
-    return hist256_pallas(plane[None])[0]
-
-
 def histogram_256(planes: jnp.ndarray, method: str | None = None) -> jnp.ndarray:
     """Per-plane exact histogram: u8 → ``[B, 256]``, u16 → ``[B, 65536]`` i32.
 
-    Default u8 method: the Pallas stripe kernel (kernels/hist.py) — the
-    one-hots live only in VMEM, one MXU dot per stripe, HBM traffic = one
-    image read (chain-clock measured 35.7 GPix/s on v5e).  The XLA
-    nibble-matmul fallback materializes its one-hots in HBM and is ~370×
-    slower ON CHIP (docs/DESIGN.md §9c) — kept for non-Pallas backends.
-    u16 uses scatter — the byte-split one-hots would materialize
+    ``method`` picks the u8 implementation; by default the platform does:
+    ``"kernel"`` (the Pallas/Triton kernel of kernels/hist.py) on a GPU,
+    ``"nibble_matmul"`` elsewhere.  ``"scatter"`` is the plain scatter-add.
+    u16 always uses scatter — the byte-split one-hots would materialize
     512 B/pixel ([P,256] ×2), which OOMs on full-resolution planes.
     """
     if method is None:
         if planes.dtype == jnp.uint16:
             method = "scatter"
+        elif jax.default_backend() == "gpu":
+            method = "kernel"
         else:
-            from imageenhancement_mp_tpu.config import pallas_enabled
+            method = "nibble_matmul"
+    if method == "kernel":
+        from imageenhancement_mp_tpu.kernels.hist import hist256_gpu
 
-            method = "pallas" if pallas_enabled() else "nibble_matmul"
-    if method == "pallas":
-        from imageenhancement_mp_tpu.kernels.hist import hist256_pallas
-
-        return hist256_pallas(planes)
+        return hist256_gpu(planes)
     fn = {"nibble_matmul": _hist_nibble_matmul, "scatter": _hist_scatter}[method]
     return jax.vmap(fn)(planes)
 
@@ -164,8 +155,8 @@ def equalize_hist_global_planes(
     b, h, w = planes.shape
     if b % channels:
         raise ValueError(f"plane count {b} not divisible by channels={channels}")
-    # per-channel pooling WITHOUT vmapping the histogram (keeps the Pallas
-    # stripe kernel un-batched): one [B, 256] pass, then group-sum — plane
+    # per-channel pooling WITHOUT vmapping the histogram (keeps the
+    # histogram kernel un-batched): one [B, 256] pass, then group-sum — plane
     # i belongs to channel i % C in the frame-major canonical layout
     n = b // channels
     total = n * h * w
@@ -185,22 +176,9 @@ def equalize_hist_global_planes(
 def equalize_hist_planes(
     planes: jnp.ndarray, method: str | None = None
 ) -> jnp.ndarray:
-    """``cv2.equalizeHist`` on a stack of planes ``[B, H, W] u8`` — exact.
-
-    On TPU the whole op (histogram → cv2 LUT build → apply) is ONE fused
-    Pallas kernel (kernels/hist.py equalize_hist_pallas): two image
-    reads, one write, no XLA round trips — the small-image dispatch fix."""
+    """``cv2.equalizeHist`` on a stack of planes ``[B, H, W] u8`` — exact."""
     if planes.dtype != jnp.uint8:
         raise TypeError(f"equalizeHist is 8-bit only (cv2 parity), got {planes.dtype}")
-    if method is None:
-        from imageenhancement_mp_tpu.config import pallas_enabled
-
-        if pallas_enabled() and planes.shape[-1] * planes.shape[-2] <= 1 << 20:
-            # small planes: the fused single-kernel path avoids the extra
-            # launches + XLA glue that dominate at small sizes (config 1)
-            from imageenhancement_mp_tpu.kernels.hist import equalize_hist_pallas
-
-            return equalize_hist_pallas(planes)
     total = planes.shape[-1] * planes.shape[-2]
     hists = histogram_256(planes, method)
     luts = jax.vmap(functools.partial(equalize_lut, total=total))(hists)

@@ -3,7 +3,7 @@ pinned in ref/ops.py ``calc_optical_flow_pyr_lk``; device == oracle
 bitwise, oracle vs cv2: status always bitwise, 99.6 % of points
 bitwise, residual ≤ 1e-4 px — docs/PARITY.md).
 
-TPU mapping: all N points are tracked in parallel (vmap) — per pyramid
+Device mapping: all N points are tracked in parallel (vmap) — per pyramid
 level one jitted program gathers each point's (h+1)×(w+1) tap windows
 with ``lax.dynamic_slice`` from the padded level (REFLECT_101 image,
 CONSTANT-0 Scharr derivatives), runs the Q14 fixed-point interpolation
@@ -22,7 +22,7 @@ Two accumulation modes:
   deep-iteration ulp ties — docs/PARITY.md); sequential over ~2·win²
   scan steps per iteration.
 * ``exact=False``: same algorithm with free-order f32 tree reductions —
-  fully parallel (the TPU-speed path); tracks identically to sub-0.1 px
+  fully parallel (the fast path); tracks identically to sub-0.1 px
   with rare convergence-boundary tie flips.
 """
 
@@ -42,7 +42,7 @@ _FLT_SCALE = np.float32(1.0 / (1 << 20))
 
 
 def _div32(a, b):
-    """Correctly rounded f32 quotient: XLA:CPU lowers f32 divide to a
+    """Correctly rounded f32 quotient: XLA lowers f32 divide to a
     reciprocal multiply (<=2 ulp, blend_linear note); dividing in f64
     and casting double-rounds innocuously (2p+2 bound) — exact on every
     backend."""
@@ -52,12 +52,9 @@ def _div32(a, b):
 
 def _prod32(a, b):
     """Separately rounded f32 product (the subpix/blend_linear idiom):
-    XLA:CPU fast-math contracts f32 mul+add chains into FMAs, flipping
-    solve ties vs cv2's plain-float arithmetic; the f64 product snapped
-    to the f32 grid is the one rounding XLA must honor.  XLA:TPU never
-    contracts, so the plain product IS the law there."""
-    if jax.default_backend() == "tpu":
-        return a * b
+    XLA fast-math contracts f32 mul+add chains into FMAs, flipping solve
+    ties vs cv2's plain-float arithmetic; the f64 product snapped to the
+    f32 grid is the one rounding XLA must honor."""
     return jax.lax.reduce_precision(
         jnp.asarray(a, jnp.float64) * jnp.asarray(b, jnp.float64), 8, 23
     ).astype(jnp.float32)
@@ -224,15 +221,9 @@ def calc_optical_flow_pyr_lk_planes(prev_levels, next_levels, prev_pts,
                 outp2 = jnp.where(active, nPt2 + half, outp)
                 if jax.config.jax_enable_x64:
                     # Point2f::ddot — two separately rounded f64
-                    # products + one f64 add, like cv2.  On XLA:CPU
-                    # reduce_precision blocks f64 fma contraction; the
-                    # TPU X64-rewrite pass rejects f64 reduce-precision
-                    # and its emulated f64 never contracts, so the
-                    # direct form IS the law there (blend_linear note).
-                    if jax.default_backend() == "tpu":
-                        rp64 = lambda v: v
-                    else:
-                        rp64 = lambda v: jax.lax.reduce_precision(v, 11, 52)
+                    # products + one f64 add, like cv2; reduce_precision
+                    # blocks f64 fma contraction (blend_linear note).
+                    rp64 = lambda v: jax.lax.reduce_precision(v, 11, 52)
                     dd = (rp64(dx.astype(jnp.float64)
                                * dx.astype(jnp.float64))
                           + rp64(dy.astype(jnp.float64)

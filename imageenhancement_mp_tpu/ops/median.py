@@ -1,10 +1,9 @@
 """Median filtering via fixed-size sorting networks.
 
 Reference equivalent: ``cv2.medianBlur`` (SURVEY.md §2 #9; border =
-replicate).  TPU-first design: no data-dependent control flow — the median
-of a 3×3/5×5 window is computed by a *selection network* of elementwise
-min/max pairs over the B×H×W-shaped window planes, fully vectorized on the
-VPU.  The 9-input network below is the classic 19-comparator median network
+replicate).  No data-dependent control flow — the median of a 3×3/5×5
+window is computed by a *selection network* of elementwise min/max pairs
+over the B×H×W-shaped window planes, fully vectorized.  The 9-input network below is the classic 19-comparator median network
 (Paeth); the 25-input one is the standard extension via column-sort +
 merge-exchange used in median-filter literature.
 """
@@ -25,29 +24,10 @@ def _windows(planes: jnp.ndarray, k: int) -> list[jnp.ndarray]:
     return [p[:, dy : dy + H, dx : dx + W] for dy in range(k) for dx in range(k)]
 
 
-
-
-
-
-def median_blur_planes(
-    planes: jnp.ndarray, ksize: int = 3, backend: str | None = None
-) -> jnp.ndarray:
-    """``cv2.medianBlur`` on uint8/uint16/float32 planes — exact; border = replicate.
-
-    On TPU dispatches to the double-buffered Pallas sorting-network kernel
-    for the reference's 3×3/5×5 sizes (kernels/median.py)."""
+def median_blur_planes(planes: jnp.ndarray, ksize: int = 3) -> jnp.ndarray:
+    """``cv2.medianBlur`` on uint8/uint16/float32 planes — exact; border = replicate."""
     if ksize % 2 == 0 or ksize < 3:
         raise ValueError("ksize must be odd and >= 3")
-    from imageenhancement_mp_tpu import config
-
-    if (
-        planes.dtype in (jnp.uint8, jnp.uint16, jnp.int16)
-        and ksize in (3, 5)
-        and (backend == "pallas" or (backend is None and config.pallas_enabled()))
-    ):
-        from imageenhancement_mp_tpu.kernels.median import median_blur_pallas
-
-        return median_blur_pallas(planes, ksize)
     ws = _windows(planes, ksize)
     if ksize == 3:
         return median9(ws)

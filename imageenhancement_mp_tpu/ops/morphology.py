@@ -8,8 +8,8 @@ BORDER_CONSTANT at the operation's identity (+∞/dtype-max for erode,
 (probes): open = dilateⁿ(erodeⁿ), close = erodeⁿ(dilateⁿ), gradient =
 sat(dilate − erode), tophat = sat(src − open), blackhat = sat(close − src).
 
-TPU mapping: kh+kw shifted min/max ops over one VMEM-resident stripe —
-pure VPU, at the 2-passes/HBM roofline; XLA fuses chains end-to-end.
+Device mapping: kh+kw shifted min/max ops in one fused pass (read + write
+of the plane); XLA fuses chains end-to-end.
 """
 
 from __future__ import annotations

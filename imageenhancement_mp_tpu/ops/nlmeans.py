@@ -2,7 +2,7 @@
 ``Colored`` and ``Multi`` variants' building blocks) on device —
 contract pinned BIT-EXACT in ref/ops.py ``fast_nl_means_denoising``.
 
-TPU mapping: a ``lax.fori_loop`` over the T·s² search candidates (T
+Device mapping: a ``lax.fori_loop`` over the T·s² search candidates (T
 temporal frames × s² spatial offsets; T=1 for the single-image op);
 each step takes one shifted view (dynamic_slice on the padded stack),
 forms the integer squared-difference map against the TARGET frame's
@@ -11,7 +11,7 @@ images as VECTOR pixels with one joint SSD), box-sums it over the t×t
 template with two cumulative sums, gathers the fixed-point weight from
 the host-built LUT (the live prefix after cv2's 0.001 cutoff is tiny —
 a few thousand entries), and accumulates the shared Σw plus
-per-channel Σw·v in int32.  All integer VPU work; the final division
+per-channel Σw·v in int32.  All integer work; the final division
 replicates cv2's ``(Σwv + Σw/2) // Σw`` in exact integer form.
 
 Accumulator bounds: Σw ≤ T·s²·FPM ≤ INT_MAX/255 by cv2's own FPM
@@ -34,21 +34,7 @@ __all__ = ["fast_nl_means_planes", "fast_nl_means_vec",
 
 
 def _lut_take(lut: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Weight-LUT gather: hardware dynamic-gather kernel on TPU (XLA's
-    per-pixel take is a scalar loop there — docs/DESIGN.md §9c)."""
-    from imageenhancement_mp_tpu.config import pallas_enabled
-
-    if pallas_enabled():
-        from imageenhancement_mp_tpu.kernels.hist import (
-            gather_width_supported,
-            take_table_pallas,
-        )
-
-        L = lut.shape[0]
-        Lp = (L + 127) // 128 * 128
-        if gather_width_supported(Lp):
-            t = jnp.pad(lut, (0, Lp - L)) if Lp != L else lut
-            return take_table_pallas(idx.astype(jnp.int32), t)
+    """Weight-LUT gather."""
     return jnp.take(lut, idx)
 
 
@@ -150,8 +136,7 @@ def fast_nl_means_u16_vec(img: jnp.ndarray, h: float = 10.0,
     fixed-point multiplier is INT_MAX itself and cv2 dispatches 64-bit
     accumulators (ref/ops.py ``_nlm_weight_lut``).  MUST be traced and
     called under ``jax.experimental.enable_x64`` (the api wrapper does
-    this): Σw ≤ s²·2³¹ and Σw·v ≤ s²·2⁴⁷ need int64, which XLA:TPU
-    lowers to emulated s64 — acceptable for this niche op.  The SAD
+    this): Σw ≤ s²·2³¹ and Σw·v ≤ s²·2⁴⁷ need int64.  The SAD
     integral images stay int32 (the modular windowed-difference trick:
     true t×t sums ≤ t²·4·65535 < 2³¹)."""
     if img.dtype != jnp.uint16:

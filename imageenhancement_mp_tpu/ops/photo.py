@@ -1,19 +1,19 @@
 """cv2.photo domain-transform family on device (contract pinned in
 ref/ops.py: edge_preserving_filter / detail_enhance / stylization).
 
-TPU mapping:
+Device mapping:
 
 * The RECURS (RF) variant is a first-order IIR along each axis.  We run
   it as ``lax.scan`` chains (forward + backward per axis, 3 iterations)
-  so the f32 op sequence matches the oracle's sequential recursion
-  exactly — XLA:TPU computes strict per-op f32 (docs/PARITY.md backend
-  nuance), so the device result is bit-identical to the oracle.  The
+  so the f32 op sequence matches the oracle's sequential recursion; where
+  XLA contracts a mul+add into FMA the result can differ by ±1
+  (docs/PARITY.md backend nuance).  The
   scan carries a ``[N,H,C]`` column; throughput is latency-bound but
   the op is O(HW) total work.
 * The NORMCONV (NC) variant is data-parallel: transformed-domain
   coordinates by ``cumsum``, box bounds by ``searchsorted`` per row
   (vmapped), box means from SAT differences — no sequential chain at
-  all, so it rides the VPU at full width.
+  all, so it runs elementwise at full width.
 * ``detail_enhance`` composes the RF filter with the f32 analytic
   Lab legs from ops/color; ``stylization`` composes the NC filter with
   a Sobel-magnitude edge-darkening pass (the pinned
@@ -211,15 +211,12 @@ def _pen_axis(ct: jnp.ndarray, radius) -> jnp.ndarray:
 
 
 def _dt_derivatives_exact(I: jnp.ndarray, sigma_s: float, sigma_r: float):
-    """`dt_derivatives` with the mul and add separately rounded on every
-    backend (XLA:CPU fast-math otherwise contracts ``1 + ratio·dIx``
-    into an fma — the blendLinear fix, api.py)."""
+    """`dt_derivatives` with the mul and add separately rounded (XLA
+    fast-math otherwise contracts ``1 + ratio·dIx`` into an fma — the
+    blendLinear fix, api.py)."""
     ratio = float(np.float32(float(sigma_s) / float(sigma_r)))
     dIx = jnp.abs(jnp.diff(I, axis=2)).sum(-1)
     dIy = jnp.abs(jnp.diff(I, axis=1)).sum(-1)
-    if jax.default_backend() == "tpu":
-        return (_F32(1.0) + _F32(ratio) * dIx), (_F32(1.0) + _F32(ratio) * dIy)
-
     def leg(d):
         p = jax.lax.reduce_precision(jnp.float64(ratio) * d.astype(jnp.float64),
                                      8, 23)
@@ -356,7 +353,7 @@ def tonemap_reinhard_nhwc(img: jnp.ndarray, gamma: float = 1.0,
                           color_adapt: float = 0.0) -> jnp.ndarray:
     """``cv2.createTonemapReinhard`` on ``(N, H, W, 3)`` f32 HDR —
     contract in ref/ops.py ``tonemap_reinhard`` (pinned ~2e-7 vs cv2).
-    Pure VPU reductions + elementwise map; everything fuses."""
+    Pure reductions + elementwise map; everything fuses."""
     f = jnp.float32
     img = _norm_minmax_f32(img.astype(f))
     gray = _gray_f32(img)
@@ -422,7 +419,7 @@ def tonemap_mantiuk_nhwc(img: jnp.ndarray, gamma: float = 1.0,
     contract in ref/ops.py ``tonemap_mantiuk``: the contrast response
     map is algebraically linear, so cv2's 100-iteration gradient-domain
     CG solve reduces to the power law ``L' = L^(scale^(1/0.4185))`` —
-    one pointwise pass on the VPU instead of ~200 pyramid traversals.
+    one pointwise pass instead of ~200 pyramid traversals.
     Budget ≤ ~3e-3 = cv2's own CG stopping tolerance.  Constant-
     luminance inputs (where cv2 asserts) return zeros via the normalize
     guard — the jitted path cannot raise data-dependently."""
@@ -450,7 +447,7 @@ def denoise_tvl1_stack(obs: jnp.ndarray, lam: float = 1.0,
                        niters: int = 30) -> jnp.ndarray:
     """``cv2.denoise_TVL1`` on a ``(K, H, W)`` uint8 observation stack —
     contract in ref/ops.py ``denoise_tvl1``.  A ``lax.fori_loop`` over
-    the primal-dual iterations; each step is pure stencil VPU math, so
+    the primal-dual iterations; each step is pure stencil math, so
     XLA fuses the whole update.  f32 iterations reproduce the f64
     oracle's u8 outputs exactly on the tested configs (the scheme is
     contractive); the razor class is the oracle's own ±1 tie."""

@@ -35,19 +35,7 @@ def apply_lut_planes(planes: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
     """``cv2.LUT`` ≡ gather (SURVEY.md §8.6).
 
     ``lut``: [S] shared or [B, S] per plane; S = 256 (u8 planes) or 65536
-    (u16).  Output dtype = table dtype.
-
-    u8 planes dispatch to the Pallas bilinear-form kernel on TPU —
-    XLA's native per-pixel gather lowers to a scalar loop there (~370×
-    slower, docs/DESIGN.md §9c).  Exact for u8/u16/f32 tables and any
-    integer table with |values| < 2^24."""
-    if planes.dtype == jnp.uint8 and lut.shape[-1] == 256 and planes.ndim >= 2:
-        from imageenhancement_mp_tpu.config import pallas_enabled
-
-        if pallas_enabled():
-            from imageenhancement_mp_tpu.kernels.hist import apply_lut256_pallas
-
-            return apply_lut256_pallas(planes, lut)
+    (u16).  Output dtype = table dtype."""
     idx = planes.astype(jnp.int32)
     if lut.ndim == 1:
         return lut[idx]
@@ -198,7 +186,7 @@ def contrast_stretch_planes(
     hi = jnp.max(planes, axis=(-2, -1)).astype(jnp.int32)
     luts = stretch_luts_from_minmax(lo, hi, a, b, maxv, planes.dtype, minv)
     if planes.dtype == jnp.uint8:
-        return apply_lut_planes(planes, luts)  # Pallas path on TPU
+        return apply_lut_planes(planes, luts)
     return jax.vmap(lambda l, p: l[p.astype(jnp.int32) - minv])(luts, planes)
 
 
@@ -245,7 +233,7 @@ def integral_planes(planes: jnp.ndarray, sq: bool = False):
     """``cv2.integral``/``integral2`` per plane: (N, H+1, W+1)
     zero-padded cumulative sums.  u8 → exact int32 (fits for any
     practical frame); u16/i16/f32 → f32 sums (the oracle's f64 at
-    ~1e-7 relative — TPUs have no f64; docs/PARITY.md)."""
+    ~1e-7 relative; docs/PARITY.md)."""
     if planes.dtype not in (jnp.uint8, jnp.uint16, jnp.int16, jnp.float32):
         raise TypeError(f"expected uint8/uint16/int16/float32, got {planes.dtype}")
     acc = jnp.int32 if planes.dtype == jnp.uint8 else jnp.float32

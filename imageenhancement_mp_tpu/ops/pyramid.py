@@ -4,9 +4,9 @@ Multi-scale enhancement primitives (pinned in ref/ops.py: REFLECT_101,
 the [1,4,6,4,1] separable kernel, DESCALE shifts — exact for u8/u16/i16,
 f32 at float tolerance).
 
-TPU mapping: the conv is 10 shifted int32 adds; the decimation/zero-stuff
+Device mapping: the conv is 10 shifted int32 adds; the decimation/zero-stuff
 are strided slices/scatter-free interleaves that XLA fuses with the conv
-— one VMEM-resident pass each way.  Pyramid levels change H×W, so these
+— one fused pass each way.  Pyramid levels change H×W, so these
 ops are not row-shardable with a static mesh split (use batch DP).
 """
 

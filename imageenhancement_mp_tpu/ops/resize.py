@@ -3,17 +3,17 @@
 built HOST-SIDE in NumPy via ``ref.resize_lin_tables`` so the device op
 and the oracle share constants bit-for-bit).
 
-TPU mapping (all shapes static, tables baked into the program):
+Device mapping (all shapes static, tables baked into the program):
 
 * nearest — two static gathers (``jnp.take``); bandwidth-bound copy.
 * linear u8 — the pinned 2^11 fixed-point pipeline in int32: a static
   gather per axis + shifted multiplies; XLA fuses it into one pass.
   The vertical mul-high ``(x*b) >> 16`` needs |x| <= 2^15 and
-  |b| <= 2^12, so the products stay inside int32 on the VPU.
+  |b| <= 2^12, so the products stay inside int32.
 * linear u16/i16/f32 — cv2's float path (f32 lerp per axis).
 * area (downscale) — TWO MATMULS: ``out = round(Wy @ img @ Wx)`` with
-  the per-axis area-weight matrices; this rides the MXU instead of a
-  gather loop, which is the whole point of doing it on a TPU.
+  the per-axis area-weight matrices; matrix products instead of a
+  gather loop.
 * area (integer factors) — reshape-mean; the 2x2 fast path keeps
   cv2's ``(sum + 2) >> 2`` half-up quirk.
 * area (any upscale axis) — the linear machinery with AREA coords.
@@ -221,7 +221,7 @@ def resize_planes(planes: jnp.ndarray, dsize, interpolation: str = "linear") -> 
             wx = _area_weights(W, ow).T                   # (W, ow)
             cell = np.float32(1.0 / ((H / oh) * (W / ow)))
             a = planes.astype(jnp.float32)
-            # two MXU matmuls; f32 weights match the oracle's cell
+            # two matmuls; f32 weights match the oracle's cell
             # scale.  Precision HIGHEST: the default matmul precision
             # truncates f32 operands (bf16 passes) and costs ~2.6e-3
             # relative error — 100+ LSB at uint16 magnitudes

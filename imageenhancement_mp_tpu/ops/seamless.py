@@ -1,6 +1,6 @@
 """Device ``seamlessClone`` (NORMAL_CLONE): FFT-DST Poisson editing.
 
-The Poisson solve is a natural TPU op: two type-1 sine transforms
+The Poisson solve is a natural device op: two type-1 sine transforms
 (odd-extension complex FFTs), an eigenvalue divide, and two inverse
 transforms — one fused XLA program per (patch shape).  Geometry (the
 mask bounding box / paste rect) is host-static like every other static

@@ -1,7 +1,7 @@
 """Sub-pixel patch extraction: ``cv2.getRectSubPix`` parity on device
 (contract pinned in ref/ops.py ``get_rect_sub_pix``).
 
-TPU mapping: one jitted program extracts N patches from one image in a
+Device mapping: one jitted program extracts N patches from one image in a
 single batched gather — the (h+1)×(w+1) tap window per center is four
 shifted views of one ``jnp.take`` on flattened indices, and the bilinear
 weights are scalar f32 per center (vmapped).  cv2 5.0 dispatches by
@@ -27,14 +27,10 @@ __all__ = ["get_rect_sub_pix_planes"]
 
 
 def _prod32(p, w):
-    """Separately rounded f32 product ``RN(p·w)``.  XLA:TPU never
-    contracts f32 mul+add so the plain product is already that; XLA:CPU
-    fast-math contracts the surrounding sums into FMAs, so route the
-    product through the one rounding XLA must honor (f64 product
-    snapped to the f32 grid via reduce_precision — the blend_linear
-    idiom, api.py)."""
-    if jax.default_backend() == "tpu":
-        return p * w
+    """Separately rounded f32 product ``RN(p·w)``.  XLA fast-math
+    contracts the surrounding sums into FMAs, so route the product
+    through the one rounding XLA must honor (f64 product snapped to the
+    f32 grid via reduce_precision — the blend_linear idiom, api.py)."""
     return jax.lax.reduce_precision(
         p.astype(jnp.float64) * w.astype(jnp.float64), 8, 23
     ).astype(jnp.float32)

@@ -2,7 +2,7 @@
 (contract pinned in ref/ops.py ``match_template`` — float tolerance,
 worst 3e-6 relative vs cv2 incl. the SQDIFF_NORMED [0,1] clamp).
 
-TPU mapping: this is the repo's pure-MXU op.  The cross-correlation is
+Device mapping: this is the repo's pure matrix-unit op.  The cross-correlation is
 one ``lax.conv_general_dilated`` with the template as the kernel, and
 the window statistics (Σ I, Σ I²) are two more convs with a ones
 kernel — XLA lowers all three onto the systolic array and fuses the

@@ -1,9 +1,9 @@
 """Thresholding: ``cv2.threshold`` parity (fixed + Otsu/Triangle auto).
 
 The fixed-threshold op is a pure elementwise compare/select — one fused
-VPU pass.  The auto methods (Otsu, Triangle) need the image histogram and
+pass.  The auto methods (Otsu, Triangle) need the image histogram and
 a sequential 256-step scan in cv2's exact double arithmetic; the
-histogram rides the MXU on device (ops/histogram.py nibble matmul) and
+histogram runs on device (ops/histogram.py) and
 the tiny scan runs on host via the exact transcriptions in ref/ops.py
 (1 KB fetch per plane — cv2's own API is host-synchronous here too: it
 RETURNS the computed threshold).
@@ -170,24 +170,9 @@ def adaptive_threshold_planes(
         S = sum(rows[:, :, j : j + W] for j in range(bs))
         mean = jnp.round(S.astype(jnp.float32) * jnp.float32(1.0 / (bs * bs))).astype(jnp.int32)
     else:
-        from imageenhancement_mp_tpu.config import pallas_enabled
-        from imageenhancement_mp_tpu.kernels.dfconv import (
-            adaptive_threshold_gaussian_pallas,
-            supports_athresh_wide,
-        )
         from imageenhancement_mp_tpu.ref.ops import gaussian_kernel
 
         taps = [float(t) for t in gaussian_kernel(bs, 0.0)]
-        if pallas_enabled() and supports_athresh_wide(planes.shape, planes.dtype, bs):
-            # fused single-residency kernel: u8 read → df conv → round →
-            # compare → u8 write (the XLA df formulation spills every
-            # tap's two_prod/two_sum intermediate to HBM — 0.88 GPix/s
-            # on 4K; kernels/dfconv.py)
-            idelta = int(np.ceil(C)) if type == "binary" else int(np.floor(C))
-            mv = int(np.clip(np.round(float(maxval)), 0, 255))
-            return adaptive_threshold_gaussian_pallas(
-                planes, taps, mv, idelta, type == "binary_inv"
-            )
         mean = _df_sep_conv_round(planes, taps)
     idelta = int(np.ceil(C)) if type == "binary" else int(np.floor(C))
     mv = jnp.int32(int(np.clip(np.round(float(maxval)), 0, 255)))

@@ -1,13 +1,13 @@
 """Affine warps: ``cv2.warpAffine`` parity on device (contract pinned
 in ref/ops.py ``warp_affine``) — BIT-EXACT for every dtype.
 
-TPU mapping: the destination->source coordinate field is affine, so the
+Device mapping: the destination->source coordinate field is affine, so the
 device never materialises an (oh, ow) coordinate constant — it rebuilds
 cv2 5.0's exact f32 hybrid coordinate field (ref/ops.py
 ``warp_affine_coords_f32``) from two tiny per-ROW f32 tables plus a
 single-rounded on-device FMA (``utils.fma.fma32``), then gathers the 4
-taps with ``jnp.take`` on flattened indices.  Everything else is VPU
-math that XLA fuses around the gather.
+taps with ``jnp.take`` on flattened indices.  Everything else is
+elementwise math that XLA fuses around the gather.
 
 * LINEAR u8/u16/f32 — cv2 5.0's float path: hybrid f32 coords (SIMD
   body ``fma(a, x, f32(b·y + c))``, scalar tail
@@ -86,8 +86,7 @@ def _cubic_w_dev(t):
     """cv2's 4-tap bicubic weights (A=-0.75) at f32 fractions, in cv2's
     evaluation order with w3 closing the partition of unity — the device
     twin of ref/ops.py ``_cubic_w_f32``.  Every constant is f32-exact;
-    on XLA:TPU strict per-op f32 reproduces the oracle bitwise (XLA:CPU
-    may FMA-contract the chains — documented ±1 tier there)."""
+    XLA may FMA-contract the chains — documented ±1 tier."""
     f = jnp.float32
     A = f(-0.75)
     t1 = t + f(1)
@@ -116,8 +115,7 @@ def _cubic_16tap_device(sample, tx, ty):
 def _cubic_keys_w_dev(t):
     """cv2 5.0's NEW warp-kernel cubic weights (ref/ops.py
     ``_cubic_w_keys_f32``) on device: factored forms with ``fma32`` for
-    the single-rounded FMA in w1.  On XLA:TPU the strict per-op f32
-    sequence replays the oracle bitwise."""
+    the single-rounded FMA in w1."""
     f = jnp.float32
     A = f(-0.75)
     u = f(1) - t
@@ -180,82 +178,6 @@ def _lanczos4_tab_device(planes, X_np, Y_np, H, W, border, border_value,
     if is_f32:
         return acc
     return jnp.clip(jnp.round(acc), minv, maxv).astype(out_dtype)
-
-
-def _static_gather_u8_pallas(planes, sx, sy, interpolation, border,
-                             border_value, H, W):
-    """Windowed Pallas gather for STATIC u8 linear/nearest warps
-    (kernels/warp.py) — the fix for the per-pixel 2D gather class
-    (docs/DESIGN.md §11): XLA lowers the gather to a ~10 ns/element
-    scalar loop; the kernel rides the hardware shuffle over per-block
-    DMA'd source windows.
-
-    Returns the warped planes, or ``None`` when the kernel doesn't
-    apply (Pallas off, no dynamic-gather support, window too large, or
-    a constant-border partial band too wide) — caller falls back to the
-    XLA path.  Output is bitwise-identical to the XLA path: the kernel
-    replays the same fma32 bilinear law on the same pinned coords, the
-    fully-outside region is overlaid with the border value, and the
-    thin partial-footprint band is recomputed with the exact XLA
-    tap-masked lerp."""
-    from imageenhancement_mp_tpu import config
-
-    if not config.pallas_enabled():
-        return None
-    from imageenhancement_mp_tpu.kernels.hist import _dg_supported
-
-    if not _dg_supported():
-        return None
-    from imageenhancement_mp_tpu.kernels import warp as kwarp
-
-    oh, ow = sx.shape
-    nearest = interpolation == "nearest"
-    if nearest:
-        iy = np.rint(np.clip(sy, -2e9, 2e9))
-        ix = np.rint(np.clip(sx, -2e9, 2e9))
-        outside = ~((iy >= 0) & (iy < H) & (ix >= 0) & (ix < W))
-        partial = np.zeros_like(outside)
-    else:
-        fx, fy = np.floor(sx), np.floor(sy)
-        inx0 = (fx >= 0) & (fx <= W - 1)
-        inx1 = (fx >= -1) & (fx <= W - 2)
-        iny0 = (fy >= 0) & (fy <= H - 1)
-        iny1 = (fy >= -1) & (fy <= H - 2)
-        m00, m01 = iny0 & inx0, iny0 & inx1
-        m10, m11 = iny1 & inx0, iny1 & inx1
-        any_in = m00 | m01 | m10 | m11
-        outside = ~any_in
-        partial = any_in & ~(m00 & m01 & m10 & m11)
-    if border == "constant" and int(partial.sum()) > max(4096, oh * ow // 50):
-        return None
-    try:
-        if nearest:
-            out = kwarp.gather_nearest_pallas(planes, iy.astype(np.int64),
-                                              ix.astype(np.int64))
-        else:
-            out = kwarp.gather_bilinear_pallas(planes, sx, sy)
-    except kwarp.WindowTooLarge:
-        return None
-    if border == "replicate":
-        return out
-    bv = jnp.asarray(border_value, planes.dtype)
-    if outside.any():
-        out = jnp.where(jnp.asarray(outside)[None], bv, out)
-    if not nearest and partial.any():
-        yb, xb = np.nonzero(partial)
-        sxb, syb = sx[yb, xb], sy[yb, xb]
-        fxb, fyb = np.floor(sxb), np.floor(syb)
-        ix0 = jnp.asarray(np.clip(fxb, -2, W + 1).astype(np.int32))
-        iy0 = jnp.asarray(np.clip(fyb, -2, H + 1).astype(np.int32))
-        vals = _bilinear_fma_device(
-            lambda dy, dx: _gather(planes, iy0 + dy, ix0 + dx, H, W,
-                                   "constant", border_value, 0,
-                                   255).astype(jnp.float32),
-            jnp.asarray((sxb - fxb).astype(np.float32)),
-            jnp.asarray((syb - fyb).astype(np.float32)))
-        vals = jnp.clip(jnp.round(vals), 0.0, 255.0).astype(planes.dtype)
-        out = out.at[:, jnp.asarray(yb), jnp.asarray(xb)].set(vals)
-    return out
 
 
 def _gather(planes, iy, ix, H, W, border, border_value, minv, maxv):
@@ -341,16 +263,6 @@ def warp_affine_planes(planes: jnp.ndarray, M, dsize, interpolation: str = "line
             fx, fy)
         return jnp.clip(jnp.round(acc), minv, maxv).astype(planes.dtype)
 
-    if planes.dtype == jnp.uint8:
-        from imageenhancement_mp_tpu.ref.ops import warp_affine_coords_f32
-
-        sx_np, sy_np = warp_affine_coords_f32(Mi, oh, ow)
-        res = _static_gather_u8_pallas(planes, np.clip(sx_np, -2e9, 2e9),
-                                       np.clip(sy_np, -2e9, 2e9),
-                                       interpolation, border, border_value,
-                                       H, W)
-        if res is not None:
-            return res
     sx, sy = _coords_f32_device(Mi, oh, ow)
     if interpolation == "nearest":
         iy = jnp.round(sy).astype(jnp.int32)
@@ -382,8 +294,8 @@ def remap_planes(planes: jnp.ndarray, map_x: jnp.ndarray, map_y: jnp.ndarray,
     coords with float tab weights; NEAREST cvRounds the map.  CUBIC
     (all dtypes) is the continuous-f32 16-tap path: oracle-tier vs cv2
     is u8 exact / u16+i16 ±1 / f32 ~1 ulp, and the device replays the
-    oracle's f32 sequence exactly on XLA:TPU (strict per-op f32;
-    XLA:CPU may FMA-contract the weight chains — ±1 LSB there)."""
+    oracle's f32 sequence (XLA may FMA-contract the weight chains —
+    ±1 LSB)."""
     if planes.dtype not in (jnp.uint8, jnp.uint16, jnp.int16, jnp.float32):
         raise TypeError(f"expected uint8/uint16/int16/float32, got {planes.dtype}")
     if border not in ("constant", "replicate"):
@@ -564,7 +476,7 @@ def warp_perspective_planes(planes: jnp.ndarray, M, dsize,
         # same f32 cubic kernel for every dtype; perspective coords use
         # cv2's fma-num / f32-div law (the SIMD reciprocal division is
         # hardware-dependent): u8 +-1 ~0.01%, u16/i16 +-1 ~1.5%,
-        # f32 <=6e-3 at 655-scale vs cv2; device == oracle on TPU
+        # f32 <=6e-3 at 655-scale vs cv2
         from imageenhancement_mp_tpu.ref.ops import warp_perspective_coords_cubic_f32
 
         sx_np, sy_np = warp_perspective_coords_cubic_f32(Mi, oh, ow)
@@ -597,11 +509,6 @@ def warp_perspective_planes(planes: jnp.ndarray, M, dsize,
     sx_np, sy_np = warp_perspective_coords_f32(Mi, oh, ow)
     sx_np = np.clip(sx_np, -2e9, 2e9)
     sy_np = np.clip(sy_np, -2e9, 2e9)
-    if planes.dtype == jnp.uint8:
-        res = _static_gather_u8_pallas(planes, sx_np, sy_np, interpolation,
-                                       border, border_value, H, W)
-        if res is not None:
-            return res
     sx = jnp.asarray(sx_np)
     sy = jnp.asarray(sy_np)
     if interpolation == "nearest":
@@ -626,12 +533,8 @@ def warp_polar_planes(planes: jnp.ndarray, dsize, center, max_radius: float,
                       interpolation: str = "linear") -> jnp.ndarray:
     """``cv2.warpPolar`` (+ ``WARP_FILL_OUTLIERS``) on ``(N, H, W)``
     planes with STATIC geometry: the coordinate maps are cv2's exact
-    host reproduction (ref/ops.py ``_warp_polar_maps``), so — unlike
-    ``remap_planes`` — they are baked at trace time and the u8
-    linear/nearest path can ride the windowed Pallas gather
-    (kernels/warp.py), the fix for the per-pixel 2D gather class
-    (docs/DESIGN.md §11).  Everything else falls through to the
-    bit-exact runtime ``remap_planes`` body on device maps.
+    host reproduction (ref/ops.py ``_warp_polar_maps``), baked at trace
+    time and applied by the bit-exact ``remap_planes`` body.
 
     Semantics identical to the previous ``api.warp_polar`` wiring
     (host maps + device remap, border constant 0; inverse wrap-pads
@@ -649,13 +552,5 @@ def warp_polar_planes(planes: jnp.ndarray, dsize, center, max_radius: float,
         # target the padded grid)
         src = jnp.concatenate(
             [planes[:, H - 1:H], planes, planes[:, 0:1]], axis=1)
-    Hs, Ws = src.shape[-2], src.shape[-1]
-    if planes.dtype == jnp.uint8 and interpolation in ("nearest", "linear"):
-        res = _static_gather_u8_pallas(src, np.clip(mx, -2e9, 2e9),
-                                       np.clip(my, -2e9, 2e9),
-                                       interpolation, "constant", 0.0,
-                                       Hs, Ws)
-        if res is not None:
-            return res
     return remap_planes(src, jnp.asarray(mx), jnp.asarray(my),
                         interpolation, "constant", 0.0)

@@ -1,14 +1,14 @@
-"""Multi-chip batch data parallelism via jax.sharding + shard_map.
+"""Multi-device batch data parallelism via jax.sharding + shard_map.
 
 The reference is single-process/single-image (SURVEY.md §2: no distributed
 anything), so the only parallelism axis with meaning here is the batch of
-images.  The TPU-native scale-out is a 1-D device Mesh over a ``batch``
+images.  The scale-out is a 1-D device Mesh over a ``batch``
 axis: planes are sharded on their leading dimension, every enhancement is
 embarrassingly parallel per plane (all per-plane state — histograms, min/
 max, CLAHE tile LUTs — is local to a shard), so the sharded program needs
 NO collectives and all "communication" is the initial shard placement.
 ``shard_map`` is used rather than relying on XLA's automatic partitioner so
-Pallas kernels inside the pipeline stay whole per shard.
+the histogram kernel inside the pipeline stays whole per shard.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def shard_pipeline(
 
 def equalize_hist_global_sharded(mesh: Mesh, axis_name: str = "batch", channels: int = 1):
     """Sharded video-consistent hist-eq: per-shard histograms pool across
-    the mesh with a ``psum`` over ICI, every frame maps through the same
+    the mesh with a ``psum`` between devices, every frame maps through the same
     global LUT.  Returns a jitted ``[B,H,W] u8 -> [B,H,W] u8`` callable
     (B divisible by the mesh size).
 

@@ -5,12 +5,12 @@ scales the *frame*: the height dimension is sharded over a mesh axis so a
 single giant frame (gigapixel scans, stitched aerial tiles) — or a
 latency-critical stream of them — uses every chip at once.  The reference
 is single-image/single-process (SURVEY.md §2), so nothing here mirrors it;
-this is the TPU-native answer to "the image no longer fits one chip",
+this is the answer to "the image no longer fits one device",
 built from the three collective patterns the domain actually needs:
 
 * **stencil ops** (Gaussian/median/unsharp/Laplacian) exchange their
   ``r = k//2`` boundary rows with mesh neighbors via ``jax.lax.ppermute``
-  over ICI (classic halo exchange; the edge shards synthesize the cv2
+  between devices (classic halo exchange; the edge shards synthesize the cv2
   border — REFLECT_101 for convs, replicate for median — from their own
   rows, so global border semantics are preserved bit-for-bit);
 * **histogram ops** (hist-eq, contrast stretch) pool per-shard statistics
@@ -110,7 +110,7 @@ def halo_exchange(
     """Extend a local ``[B, h, W]`` row block by ``r`` halo rows per side.
 
     Interior halos are the neighbor shards' boundary rows, moved with two
-    ``ppermute`` shifts over ICI; the global top/bottom shards synthesize
+    ``ppermute`` shifts between devices; the global top/bottom shards synthesize
     the cv2 border instead — ``mode="reflect"`` (BORDER_REFLECT_101, rows
     ``r..1`` / ``h-2..h-1-r``) or ``mode="edge"`` (replicate).  Requires
     ``h ≥ r+1`` for reflect (the REFLECT_101 border reads local row ``r``)
@@ -170,7 +170,6 @@ def gaussian_blur_spatial(
     sigma: float = 0.0,
     sigma_y: float = 0.0,
     axis_name: str = "y",
-    backend: str | None = None,
 ) -> jnp.ndarray:
     """``cv2.GaussianBlur`` on row-sharded planes — bit-identical to
     :func:`ops.filters.gaussian_blur_planes` on the gathered frame."""
@@ -179,8 +178,7 @@ def gaussian_blur_spatial(
     kh, _, _, _ = gaussian_axes(
         sigma=sigma, sigma_y=sigma_y, ksize=ksize, depth_u8=local.dtype == jnp.uint8
     )
-    op = partial(gaussian_blur_planes, ksize=ksize, sigma=sigma, sigma_y=sigma_y,
-                 backend=backend)
+    op = partial(gaussian_blur_planes, ksize=ksize, sigma=sigma, sigma_y=sigma_y)
     return _stencil_spatial(local, op, kh // 2, "reflect", axis_name)
 
 
@@ -190,7 +188,6 @@ def unsharp_mask_spatial(
     ksize: int = 5,
     sigma: float = 0.0,
     axis_name: str = "y",
-    backend: str | None = None,
 ) -> jnp.ndarray:
     """Unsharp mask on row-sharded planes (halo = the blur's radius)."""
     from imageenhancement_mp_tpu.ops.filters import unsharp_mask_planes
@@ -198,19 +195,17 @@ def unsharp_mask_spatial(
     kh, _, _, _ = gaussian_axes(
         sigma=sigma, sigma_y=sigma, ksize=ksize, depth_u8=local.dtype == jnp.uint8
     )
-    op = partial(unsharp_mask_planes, amount=amount, ksize=ksize, sigma=sigma,
-                 backend=backend)
+    op = partial(unsharp_mask_planes, amount=amount, ksize=ksize, sigma=sigma)
     return _stencil_spatial(local, op, kh // 2, "reflect", axis_name)
 
 
 def median_blur_spatial(
-    local: jnp.ndarray, ksize: int = 3, axis_name: str = "y",
-    backend: str | None = None,
+    local: jnp.ndarray, ksize: int = 3, axis_name: str = "y"
 ) -> jnp.ndarray:
     """``cv2.medianBlur`` on row-sharded planes (replicate border)."""
     from imageenhancement_mp_tpu.ops.median import median_blur_planes
 
-    op = partial(median_blur_planes, ksize=ksize, backend=backend)
+    op = partial(median_blur_planes, ksize=ksize)
     return _stencil_spatial(local, op, ksize // 2, "edge", axis_name)
 
 
@@ -351,10 +346,9 @@ def equalize_hist_spatial(
 ) -> jnp.ndarray:
     """``cv2.equalizeHist`` per frame on row-sharded planes.
 
-    Each shard histograms its rows (the Pallas stripe kernel on TPU,
-    kernels/hist.py), a ``psum`` pools the 256 bins across the mesh, and
+    Each shard histograms its rows (``histogram_256``), a ``psum`` pools the 256 bins across the mesh, and
     every shard maps its rows through the identical full-frame LUT —
-    1 KB over ICI per plane.
+    1 KB between devices per plane.
     """
     from imageenhancement_mp_tpu.ops.histogram import equalize_lut, histogram_256
 
@@ -453,7 +447,7 @@ def clahe_spatial(
     area = th * tw
 
     # stages A+B: local tile rows only
-    hists = jax.vmap(lambda img: _tile_hists(img, ghl, gw, th, tw, hist_size))(local)
+    hists = _tile_hists(local, ghl, gw, th, tw, hist_size)
     luts = clahe_tile_luts(
         hists.reshape(B * ghl * gw, hist_size), area, clip_limit, hist_size
     ).reshape(B, ghl * gw, hist_size)
@@ -572,21 +566,14 @@ def make_spatial_pipeline(
         ], mesh)
         out = pipe(device_put_spatial(planes, mesh))
     """
-    _BACKEND_AWARE = {"gaussian_blur", "unsharp_mask", "median_blur"}
     norm: list[tuple[str, tuple[tuple[str, object], ...]]] = []
-    multi = len(stages) > 1
     for s in stages:
         name, kwargs = (s, {}) if isinstance(s, str) else s
         if name not in SPATIAL_OP_REGISTRY:
             raise KeyError(
                 f"unknown spatial op {name!r}; available: {sorted(SPATIAL_OP_REGISTRY)}"
             )
-        kwargs = dict(kwargs)
-        # same chain policy as make_pipeline: multi-stage chains stay in
-        # one XLA compiler view (docs/DESIGN.md §4)
-        if multi and name in _BACKEND_AWARE:
-            kwargs.setdefault("backend", "xla")
-        norm.append((name, tuple(sorted(kwargs.items()))))
+        norm.append((name, tuple(sorted(dict(kwargs).items()))))
     norm_t = tuple(norm)
 
     def run(local):
@@ -611,7 +598,7 @@ def make_spatial_pipeline(
 #   pinned coordinate tables and the per-shard tables are rebased onto the
 #   halo-extended block (bit-identical arithmetic to the planes op).
 # * warpAffine / remap — an affine map (or arbitrary runtime maps) can pull
-#   input rows from anywhere, so the input is all_gather'd over ICI and
+#   input rows from anywhere, so the input is all_gather'd between devices and
 #   each shard computes ONLY its own output rows (compute sharded n-ways,
 #   coordinates sliced from the exact hybrid-f32 row tables).
 # * canny — stencil stages use halos; the hysteresis flood is a CROSS-SHARD
@@ -698,7 +685,7 @@ def resize_spatial(local, dsize, interpolation: str = "linear",
             # (h = (H//oh)·oloc), so the planes op IS the local op
             return resize_planes(local, (oloc, ow), "area")
         if H >= oh and W >= ow:
-            # general downscale: the two-MXU-matmul path with the shard's
+            # general downscale: the two-matmul path with the shard's
             # Wy rows; Wy zero-padded by r columns per side so the slice
             # aligns with the halo-extended block (zero weight on any
             # synthesized halo row — exactness preserved)
@@ -772,8 +759,8 @@ def warp_affine_spatial(local, M, dsize, interpolation: str = "linear",
     cubic/lanczos4 ride the same row split (cubic through the warp
     kernel's own law, lanczos4 through remap's tab path with exactly
     re-quantizable maps) — u8 bit-identical to the single-chip op;
-    float accumulation chains may differ by the CPU backend's
-    contraction tier (strict/identical on TPU)."""
+    float accumulation chains may differ by XLA's FMA-contraction
+    tier."""
     from imageenhancement_mp_tpu.ops.warp import (_bilinear_tab_seq_device,
                                                   _gather, remap_planes)
     from imageenhancement_mp_tpu.ref.ops import (invert_affine,

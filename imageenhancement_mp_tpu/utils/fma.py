@@ -1,4 +1,4 @@
-"""Exact f32 FMA emulation (no hardware FMA, no f64) — shared by ops/kernels.
+"""Exact f32 FMA emulation (no hardware FMA, no f64) — shared by the ops.
 
 cv2's integer SIMD paths (convertScaleAbs, normalize's convertTo,
 addWeighted) compute **single-rounded** f32 FMAs.  JAX f32 mul+add rounds
@@ -6,7 +6,7 @@ twice, flipping ties (±1 LSB after cvRound).  ``fma32`` reproduces the
 single rounding exactly: Dekker two-product + Knuth two-sum give the exact
 error terms, and adding them back yields the correctly rounded result
 (0 mismatches vs the f64-reference FMA in 10M+ fuzz cases; see
-docs/PARITY.md).  Plain arithmetic only — safe inside Pallas kernels.
+docs/PARITY.md).  Plain arithmetic only.
 """
 
 from __future__ import annotations

@@ -65,7 +65,6 @@ def test_weighted_native_law():
                                                     jnp.asarray(acc), al))
             # XLA:CPU codegen FMA-contracts the product+add chain (the
             # documented backend nuance, docs/PARITY.md) — 1-ulp there;
-            # XLA:TPU is strict per-op f32 and matches bitwise
             ulp = np.spacing(np.abs(got))
             assert np.abs(dev.astype(np.float64)
                           - got.astype(np.float64)).max() <= ulp.max()

@@ -1,5 +1,5 @@
-"""u16 CLAHE packed gather-chain blend kernel (kernels/clahe_u16.py) —
-interpret tier, pinned against the ref/ oracle."""
+"""u16 and u8 CLAHE planes op at divisible and odd geometries, pinned
+against the ref/ oracle."""
 
 import numpy as np
 import pytest
@@ -13,47 +13,32 @@ def maxdiff(a, b):
     )
 
 
-def _forced_pallas_clahe(x, clip, grid):
-    from imageenhancement_mp_tpu import config
+def _clahe(x, clip, grid):
     from imageenhancement_mp_tpu.ops.clahe import clahe_planes
 
-    config.use_pallas_kernels = True
-    try:
-        return clahe_planes(x, clip, grid)
-    finally:
-        config.use_pallas_kernels = None
-
-
-def test_uniform_quadrant_split_predicate():
-    from imageenhancement_mp_tpu.kernels.clahe_u16 import uniform_quadrant_split
-    from imageenhancement_mp_tpu.ops.clahe import _interp_coords
-
-    for n_tiles, tile in [(2, 8), (2, 128), (8, 270), (8, 480), (8, 135)]:
-        i0, _, _ = _interp_coords(n_tiles * tile, tile, n_tiles)
-        assert uniform_quadrant_split(i0, n_tiles, tile), (n_tiles, tile)
+    return clahe_planes(x, clip, grid)
 
 
 @pytest.mark.parametrize("clip", [2.0, 40.0])
-def test_clahe_u16_kernel_vs_ref(rng, clip):
+def test_clahe_u16_vs_ref(rng, clip):
     x = rng.integers(0, 65536, (1, 16, 256), dtype=np.uint16)
-    got = _forced_pallas_clahe(x, clip, (2, 2))
+    got = _clahe(x, clip, (2, 2))
     want = np.stack([ref.clahe(p, clip, (2, 2)) for p in x])
-    # CPU-backend FMA contraction budget (±1) as for u8 (docs/PARITY.md)
+    # FMA-contraction budget (±1) of the stage-C blend (docs/PARITY.md)
     assert maxdiff(got, want) <= 1
 
 
-def test_clahe_u16_kernel_batch(rng):
+def test_clahe_u16_batch(rng):
     x = rng.integers(0, 65536, (2, 16, 256), dtype=np.uint16)
-    got = _forced_pallas_clahe(x, 2.5, (2, 2))
+    got = _clahe(x, 2.5, (2, 2))
     want = np.stack([ref.clahe(p, 2.5, (2, 2)) for p in x])
     assert maxdiff(got, want) <= 1
 
 
 def test_clahe_u16_narrow_range(rng):
-    # values concentrated in a few bins: exercises clip/redistribute + the
-    # chain's low segments
+    # values concentrated in a few bins: exercises clip/redistribute
     x = (rng.integers(0, 512, (1, 16, 256)) + 30000).astype(np.uint16)
-    got = _forced_pallas_clahe(x, 3.0, (2, 2))
+    got = _clahe(x, 3.0, (2, 2))
     want = np.stack([ref.clahe(p, 3.0, (2, 2)) for p in x])
     assert maxdiff(got, want) <= 1
 
@@ -66,17 +51,16 @@ def test_clahe_u16_narrow_range(rng):
         ((1, 64, 384), (4, 3), 3.5),
     ],
 )
-def test_clahe_u8_quadrant_kernel(rng, shape, grid, cl):
-    """u8 CLAHE through the quadrant blend (1-step packed chain)."""
+def test_clahe_u8_divisible_grids(rng, shape, grid, cl):
     x = rng.integers(0, 256, shape, dtype=np.uint8)
-    got = _forced_pallas_clahe(x, cl, grid)
+    got = _clahe(x, cl, grid)
     want = np.stack([ref.clahe(p, cl, grid) for p in x])
-    assert maxdiff(got, want) <= 1  # CPU-tier FMA-contraction budget
+    assert maxdiff(got, want) <= 1  # FMA-contraction budget
 
 
-def test_clahe_u16_odd_geometry_falls_back(rng):
-    # non-divisible size keeps the XLA path (results still match ref)
+def test_clahe_u16_odd_geometry(rng):
+    # non-divisible size: cv2's REFLECT_101 pad of both dims
     x = rng.integers(0, 65536, (1, 20, 250), dtype=np.uint16)
-    got = _forced_pallas_clahe(x, 2.0, (2, 2))
+    got = _clahe(x, 2.0, (2, 2))
     want = np.stack([ref.clahe(p, 2.0, (2, 2)) for p in x])
     assert maxdiff(got, want) <= 1

@@ -8,7 +8,7 @@ import pytest
 
 import numpy as np
 
-ENV = {**os.environ, "IE_MP_TPU_PLATFORM": "cpu"}
+ENV = {**os.environ, "JAX_PLATFORMS": "cpu"}
 
 from imageenhancement_mp_tpu import ref
 

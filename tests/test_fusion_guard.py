@@ -1,17 +1,15 @@
-"""Fusion regression guard for the flagship pipeline (docs/DESIGN.md §4).
+"""Fusion regression guard for the flagship pipeline (hist-eq → unsharp).
 
-The 500+ GPix/s headline depends on XLA keeping the hist-eq LUT gather, the
+Its throughput depends on XLA keeping the hist-eq LUT gather, the
 separable conv, and the unsharp epilogue inside a handful of fused passes
 over pixel-scale data.  Nothing in the op code asserts that — an XLA
-version bump that splits the fusion would halve throughput silently.  This
+version bump that splits the fusion would slow the flagship silently.  This
 test compiles the flagship and bounds the number of *materializing*
-pixel-scale instructions in the entry computation (each one is an HBM
-round trip).  A fully-unfused pipeline has 25+ (one per primitive); the
-fused program has 7 on the CPU backend and ~14 on TPU (where padding
-concats and layout copies also surface at entry level).
-
-The companion runtime guard is ``bench.py --gate`` (default 100 GPix/s on
-TPU), which the driver runs every round.
+pixel-scale instructions in the entry computation (each one is a round
+trip through device memory).  A fully-unfused pipeline has 25+ (one per
+primitive); the fused program has 7 on the CPU backend and 2 on the H100
+(the histogram is one Pallas kernel there; counted from the compiled HLO
+on the card).
 """
 
 import math
@@ -26,7 +24,7 @@ from imageenhancement_mp_tpu.pipeline import equalize_unsharp
 FREE_OPS = {"parameter", "bitcast", "reshape", "get-tuple-element", "tuple", "constant"}
 
 # materializing-pixel-scale-instruction budgets per backend family
-BOUNDS = {"cpu": 10, "tpu": 18}
+BOUNDS = {"cpu": 10, "gpu": 4}
 
 
 def _count_pixel_scale_materializations(compiled_text: str, npix: int) -> list[tuple[str, int]]:
@@ -45,12 +43,12 @@ def test_flagship_stays_fused():
     txt = jax.jit(lambda a: equalize_unsharp(a, 1.0, 5, 0.0)).lower(x).compile().as_text()
     hits = _count_pixel_scale_materializations(txt, x.size)
     platform = jax.devices()[0].platform
-    bound = BOUNDS.get(platform, BOUNDS["tpu"])
+    bound = BOUNDS[platform]
     assert len(hits) <= bound, (
         f"flagship compiled to {len(hits)} pixel-scale materializing "
         f"instructions on {platform} (budget {bound}): {hits} — XLA fusion "
-        "of the hist-LUT gather + conv + unsharp epilogue regressed "
-        "(docs/DESIGN.md §4); expect the bench headline to drop too"
+        "of the hist-LUT gather + conv + unsharp epilogue regressed; "
+        "expect the bench headline to drop too"
     )
     # the LUT application must be a gather (not a 256-way select chain) and
     # appear exactly once at pixel scale inside the whole program

@@ -123,8 +123,6 @@ def test_blend_linear_device_vs_ref():
         af = a.astype(np.float32)
         bf = b.astype(np.float32)
         gf = np.asarray(ie.blend_linear(jnp.asarray(af), jnp.asarray(bf), w1, w2))
-        # XLA:CPU fast-math contracts the numerator's mul+add into fma
-        # (1-ulp numerator shift → ≤2 ulp after the divide, on this
-        # hermetic tier only); XLA:TPU is bitwise and the device
-        # selftest asserts 0 there (docs/PARITY.md)
-        assert _ulp32(gf, ref.blend_linear(af, bf, w1, w2)) <= 2
+        # bitwise: separately rounded products, f64 quotient snapped to
+        # the f32 grid (api.py _blend_linear_jit; docs/PARITY.md)
+        assert _ulp32(gf, ref.blend_linear(af, bf, w1, w2)) == 0

@@ -184,12 +184,12 @@ def test_i16_pipeline_and_spatial(rng):
 
 
 @pytest.mark.parametrize("ksize", [3, 5])
-def test_median_i16_pallas_kernel(rng, ksize):
-    """The Pallas sorting-network kernel (interpret mode on CPU) takes i16
-    directly — the in-kernel int32 widening is sign-correct."""
-    from imageenhancement_mp_tpu.kernels.median import median_blur_pallas
+def test_median_i16_planes(rng, ksize):
+    """The sorting-network median takes i16 planes directly (signed
+    compares, no widening)."""
+    from imageenhancement_mp_tpu.ops.median import median_blur_planes
 
     x = rand_i16(rng, (2, 37, 53))
-    got = np.asarray(median_blur_pallas(x, ksize))
+    got = np.asarray(median_blur_planes(x, ksize))
     want = np.stack([ref.median_blur(p, ksize) for p in x])
     assert maxdiff(got, want) == 0

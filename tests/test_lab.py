@@ -70,7 +70,7 @@ def test_clahe_lab_matches_cv2_recipe():
     want = cv2.cvtColor(
         np.concatenate([Lcv[..., None], lab[..., 1:]], axis=-1), cv2.COLOR_LAB2RGB)
     # the CLAHE stage carries the documented CPU-tier ±1 on L (XLA:CPU
-    # FMA contraction — on TPU it measures 0); the Lab legs are
+    # FMA contraction); the Lab legs are
     # bit-exact, so wherever the L planes agree the RGB must be equal
     Ldev = np.asarray(ie.clahe(jnp.asarray(lab[..., 0]), 2.0, (4, 4)))
     dL = np.abs(Ldev.astype(np.int64) - Lcv.astype(np.int64))

@@ -204,8 +204,8 @@ def test_float_median_stretch_gamma_log(rng):
     assert np.abs(np.asarray(ie.median_blur(x, 3)) - np.stack([ref.median_blur(p, 3) for p in x])).max() == 0
     assert np.abs(np.asarray(ie.contrast_stretch(x)) - np.stack([ref.contrast_stretch(p) for p in x])).max() < 1e-3
     xp = np.abs(x)
-    # TPU f32 transcendentals (pow/log) are ~1e-4 relative vs CPU libm —
-    # tolerances sized for the real chip (discovered running this tier
+    # device f32 transcendentals (pow/log) can be ~1e-4 relative vs CPU
+    # libm — tolerances sized for accelerators (discovered running this tier
     # on-device), scaled by the 0..255-ish value range
     assert np.abs(np.asarray(ie.gamma(xp, 2.2)) - np.stack([ref.gamma_transform(p, 2.2) for p in xp])).max() < 2e-2
     assert np.abs(np.asarray(ie.log_transform(xp)) - np.stack([ref.log_transform(p) for p in xp])).max() < 2e-2
@@ -686,8 +686,7 @@ def test_cvt_color_hsv_device_vs_ref(rng, code):
         else:
             # inverse: XLA:CPU's codegen-level FMA contraction can flip
             # ~5e-5 of pixels by ±1 vs the strict-per-op oracle (the CLAHE
-            # precedent, docs/PARITY.md backend nuance); XLA:TPU is strict
-            # and the on-chip selftest asserts 0
+            # precedent, docs/PARITY.md backend nuance)
             d = np.abs(got.astype(np.int64) - want.astype(np.int64))
             assert int(d.max()) <= 1, (code, shape)
             assert (d > 0).mean() < 1e-3

@@ -143,8 +143,7 @@ def test_clahe_spatial_matches_single_device(rng, dtype):
     )
     want = np.asarray(clahe_planes(jnp.asarray(planes), 2.0, (8, 8)))
     # the CLAHE blend carries the documented ±1 CPU-tier budget (XLA:CPU
-    # FMA contraction can differ between the two compiled programs);
-    # on TPU both paths are strict f32 and bit-identical
+    # FMA contraction can differ between the two compiled programs)
     assert maxdiff(got, want) <= 1
 
 

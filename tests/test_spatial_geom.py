@@ -46,8 +46,7 @@ def test_resize_spatial_bitexact(interp, dsize, dt):
     else:
         # f32 lerp paths: XLA:CPU contracts mul+add into FMA differently
         # across compilation contexts (the documented CLAHE-tier caveat,
-        # docs/PARITY.md "backend nuance") — the TPU backend is strict
-        # per-op and measures 0
+        # docs/PARITY.md "backend nuance")
         d = np.abs(got.astype(np.float64) - want.astype(np.float64))
         lim = 1.0 if dt is not np.float32 else 1e-2 * max(1.0, np.abs(want).max())
         assert float(d.max()) <= lim, (interp, dsize, dt, d.max())
@@ -144,6 +143,6 @@ def test_warp_affine_spatial_cubic_lanczos(interp, dt):
     if dt is np.uint8:
         assert np.array_equal(got, want), interp
     else:
-        # CPU-backend contraction tier; TPU strict per-op matches
+        # XLA FMA-contraction tier
         d = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
         assert d <= 1e-2 * max(1.0, float(np.abs(want).max())), (interp, d)
